@@ -1,0 +1,49 @@
+"""gzp_tpu_torch — parallel block compression on a CUDA GPU, in PyTorch.
+
+The PyTorch/CUDA port of ``gzp_tpu``: the same builder and writer API and
+byte-identical output. Blocks are compressed data-parallel as the batch
+dimension of a device encoder whose LZ77 matcher and bit packer are
+hand-written CUDA kernels (``csrc/``, built with ``nvcc`` at first use)
+and whose other stages are plain PyTorch. Implemented so far: Mgzip and
+BGZF members at levels 0-5. Entry points run on ``cuda:0`` unless given
+another device; ``device="cpu"`` runs the plain versions on the CPU.
+
+    >>> import io, gzip
+    >>> from gzp_tpu_torch import ZBuilder, Mgzip
+    >>> buf = io.BytesIO()
+    >>> w = ZBuilder(Mgzip).num_threads(4).device("cpu").from_writer(buf)
+    >>> _ = w.write(b"hello world " * 1000)
+    >>> _ = w.finish()
+    >>> gzip.decompress(buf.getvalue()) == b"hello world " * 1000
+    True
+"""
+
+from gzp_tpu_torch.check import Adler32, Check, Crc32, PassThroughCheck  # noqa: F401
+from gzp_tpu_torch.constants import BGZF_BLOCK_SIZE, BUFSIZE, DICT_SIZE  # noqa: F401
+from gzp_tpu_torch.errors import (  # noqa: F401
+    BlockSizeExceededError,
+    BufferSizeError,
+    ChannelError,
+    CompressError,
+    DecompressError,
+    GzpError,
+    InvalidCheckError,
+    InvalidHeaderError,
+    NumThreadsError,
+    WriterClosedError,
+)
+from gzp_tpu_torch.formats import (  # noqa: F401
+    ALL_FORMATS,
+    Bgzf,
+    BlockFormatSpec,
+    FormatSpec,
+    Gzip,
+    Mgzip,
+    RawDeflate,
+    Zlib,
+)
+from gzp_tpu_torch.parallel.builder import ZBuilder  # noqa: F401
+from gzp_tpu_torch.parallel.compress import ParCompress, ParCompressBuilder  # noqa: F401
+from gzp_tpu_torch.parallel.syncz import SyncZ, SyncZBuilder  # noqa: F401
+
+__version__ = "0.1.0"

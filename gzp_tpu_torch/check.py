@@ -1,0 +1,364 @@
+"""Checksum subsystem: per-block checksums + whole-stream combine.
+
+This is the equivalent of the reference's check layer (reference
+src/check.rs:16-198): a :class:`Check` interface with ``update``,
+``combine``, ``sum`` and ``amount``, implemented for CRC32 (gzip/mgzip/bgzf),
+Adler32 (zlib) and a pass-through.
+
+``combine`` is the pigz "COMB" trick: given checksums of two adjacent
+byte ranges, produce the checksum of their concatenation in O(log n)
+without rescanning — this is what lets block-parallel compression emit a
+whole-stream checksum. The GF(2) matrix math for CRC combine is
+implemented from first principles below (same linear-algebra approach as
+zlib's ``crc32_combine``); Adler combine is modular arithmetic.
+
+Host-side ``update`` uses ``zlib.crc32``/``zlib.adler32`` (these are
+checks, not codecs — the reference likewise delegates to flate2/zlib-ng,
+reference src/check.rs:132-164). Device-side batched checksums live in
+``gzp_tpu_torch.ops.checksum``.
+"""
+
+from __future__ import annotations
+
+import zlib
+
+import numpy as np
+
+__all__ = [
+    "Check",
+    "Crc32",
+    "Adler32",
+    "PassThroughCheck",
+    "crc32_combine",
+    "adler32_combine",
+    "CRC32_POLY",
+    "crc_table",
+    "crc_shift_operator_matrix",
+    "crc_operator_tables",
+    "apply_operator_tables",
+]
+
+U32 = 0xFFFFFFFF
+
+# Reflected polynomial.
+CRC32_POLY = 0xEDB88320
+
+ADLER_MOD = 65521
+
+
+# ---------------------------------------------------------------------------
+# GF(2) linear-operator machinery for CRC combine.
+#
+# Processing input bits through a (reflected) CRC register is linear over
+# GF(2) in the register state. The operator "advance the register past one
+# zero bit" is a 32x32 bit-matrix; advancing past N zero bytes is that
+# matrix to the 8N-th power. crc(A || B) can then be computed as
+# op_{len(B)}(crc(A)) XOR crc(B) where crc() here is the raw register
+# with standard pre/post-conditioning folded in (the conditioning terms
+# cancel exactly as in zlib's crc32_combine).
+# ---------------------------------------------------------------------------
+
+
+def _gf2_matrix_times(mat: list[int], vec: int) -> int:
+    """Apply a 32x32 GF(2) matrix (list of 32 column images) to a vector."""
+    out = 0
+    idx = 0
+    while vec:
+        if vec & 1:
+            out ^= mat[idx]
+        vec >>= 1
+        idx += 1
+    return out
+
+
+def _gf2_matrix_square(mat: list[int]) -> list[int]:
+    return [_gf2_matrix_times(mat, mat[n]) for n in range(32)]
+
+
+def _zero_bit_operator(poly: int) -> list[int]:
+    """Matrix advancing a reflected CRC register past a single zero bit.
+
+    Register update for a zero input bit: r -> (r >> 1) ^ (poly if r & 1).
+    Column images: e_0 -> poly, e_n -> e_{n-1}.
+    """
+    mat = [0] * 32
+    mat[0] = poly
+    row = 1
+    for n in range(1, 32):
+        mat[n] = row
+        row <<= 1
+    return mat
+
+
+def _crc_combine(crc1: int, crc2: int, len2: int, poly: int) -> int:
+    """Combine CRCs of adjacent ranges: crc(A||B) from crc(A), crc(B), len(B)."""
+    if len2 == 0:
+        return crc1 & U32
+    # Build the "advance past one zero byte" operator (square the 1-bit
+    # operator three times: 1 -> 2 -> 4 -> 8 bits), then exponentiate it to
+    # len2 via binary expansion, applying to crc1 along the way.
+    op = _zero_bit_operator(poly)
+    op = _gf2_matrix_square(op)
+    op = _gf2_matrix_square(op)
+    op = _gf2_matrix_square(op)  # now advances 8 bits = 1 zero byte
+    crc = crc1 & U32
+    n = len2
+    while n:
+        if n & 1:
+            crc = _gf2_matrix_times(op, crc)
+        n >>= 1
+        if n:
+            op = _gf2_matrix_square(op)
+    return (crc ^ crc2) & U32
+
+
+def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
+    """pigz/zlib-style CRC32 combine (reference src/check.rs:161-163)."""
+    return _crc_combine(crc1, crc2, len2, CRC32_POLY)
+
+
+def adler32_combine(adler1: int, adler2: int, len2: int) -> int:
+    """Adler32 combine (reference src/check.rs:117-128 via zlib-ng FFI).
+
+    Appending B (len2 bytes, adler (a2, b2)) after A (adler (a1, b1)):
+      a = a1 + a2 - 1           (mod 65521)
+      b = b1 + b2 + len2*(a1-1) (mod 65521)
+    """
+    rem = len2 % ADLER_MOD
+    a1 = adler1 & 0xFFFF
+    b1 = (adler1 >> 16) & 0xFFFF
+    a2 = adler2 & 0xFFFF
+    b2 = (adler2 >> 16) & 0xFFFF
+    a = (a1 + a2 - 1) % ADLER_MOD
+    b = (b1 + b2 + rem * (a1 - 1)) % ADLER_MOD  # Python % is non-negative
+    return ((b << 16) | a) & U32
+
+
+# ---------------------------------------------------------------------------
+# Byte-at-a-time CRC table — the base for building device-side operator
+# tables.
+# ---------------------------------------------------------------------------
+
+_TABLE_CACHE: dict[int, np.ndarray] = {}
+
+
+def crc_table(poly: int) -> np.ndarray:
+    """256-entry byte-at-a-time table for a reflected CRC polynomial."""
+    tab = _TABLE_CACHE.get(poly)
+    if tab is not None:
+        return tab
+    entries = np.arange(256, dtype=np.uint32)
+    crc = entries.copy()
+    for _ in range(8):
+        low = crc & 1
+        crc = crc >> 1
+        crc = np.where(low.astype(bool), crc ^ np.uint32(poly), crc)
+    _TABLE_CACHE[poly] = crc
+    return crc
+
+
+# ---------------------------------------------------------------------------
+# Precomputed shift-operator tables for device-side CRC folding.
+#
+# The operator O_L (advance register past L zero bytes) is linear; we
+# materialize it as four 256-entry uint32 tables (one per register byte) so
+# that applying it is four gathers + XOR:  O_L(r) = T0[r&255] ^ T1[(r>>8)&255]
+# ^ T2[(r>>16)&255] ^ T3[r>>24].  These feed the log-tree combine of
+# per-segment CRCs inside the batched device checksum kernel.
+# ---------------------------------------------------------------------------
+
+
+def gf2_matrix_invert(mat: list[int]) -> list[int]:
+    """Invert a 32x32 GF(2) matrix given as 32 column images.
+
+    The one-zero-byte CRC shift operator is invertible (multiplication by
+    x^8 mod an odd polynomial), which lets us *remove* trailing zero bytes
+    from a raw CRC register — the trick behind exact-length device CRCs of
+    zero-padded blocks.
+    """
+    n = 32
+    # rows of [M | I] as 64-bit ints: low 32 bits = M column space transposed?
+    # Work column-wise: solve M X = I by Gaussian elimination on columns.
+    # Represent M as list of columns; build augmented columns of (M, I).
+    m = list(mat)
+    inv = [1 << i for i in range(n)]
+    # Forward elimination to reduced form.
+    for bit in range(n):
+        pivot = None
+        for c in range(bit, n):
+            if (m[c] >> bit) & 1:
+                pivot = c
+                break
+        assert pivot is not None, "matrix not invertible"
+        m[bit], m[pivot] = m[pivot], m[bit]
+        inv[bit], inv[pivot] = inv[pivot], inv[bit]
+        for c in range(n):
+            if c != bit and ((m[c] >> bit) & 1):
+                m[c] ^= m[bit]
+                inv[c] ^= inv[bit]
+    # Now m is a permutation-free identity: m[c] == 1<<c, and inv holds M^-1
+    # columns: M @ inv_col_c = e_c, i.e. inv is the matrix of M^{-1}.
+    return inv
+
+
+def crc_shift_operator_matrix(nbytes: int, poly: int) -> list[int]:
+    """32x32 GF(2) matrix (column images) advancing the register past
+    ``nbytes`` zero bytes."""
+    op = _zero_bit_operator(poly)
+    # op now advances 1 bit; raise to the 8*nbytes power via binary expansion.
+    result: list[int] | None = None
+    n = nbytes * 8
+    while n:
+        if n & 1:
+            if result is None:
+                result = list(op)
+            else:
+                result = [_gf2_matrix_times(op, result[c]) for c in range(32)]
+        op = _gf2_matrix_square(op)
+        n >>= 1
+    if result is None:  # nbytes == 0 -> identity
+        result = [1 << n for n in range(32)]
+    return result
+
+
+def crc_operator_tables(nbytes: int, poly: int) -> np.ndarray:
+    """Materialize O_{nbytes} as a [4, 256] uint32 lookup-table array."""
+    mat = crc_shift_operator_matrix(nbytes, poly)
+    tables = np.zeros((4, 256), dtype=np.uint32)
+    for byte_idx in range(4):
+        vals = np.zeros(256, dtype=np.uint32)
+        for bit in range(8):
+            col = np.uint32(mat[byte_idx * 8 + bit])
+            idx = np.arange(256)
+            mask = ((idx >> bit) & 1).astype(bool)
+            vals[mask] ^= col
+        tables[byte_idx] = vals
+    return tables
+
+
+def apply_operator_tables(tables: np.ndarray, crc: np.ndarray) -> np.ndarray:
+    """Apply a [4,256] operator-table set to an array of uint32 registers."""
+    crc = crc.astype(np.uint32)
+    return (
+        tables[0][crc & 0xFF]
+        ^ tables[1][(crc >> 8) & 0xFF]
+        ^ tables[2][(crc >> 16) & 0xFF]
+        ^ tables[3][(crc >> 24) & 0xFF]
+    )
+
+
+# ---------------------------------------------------------------------------
+# Check classes (reference src/check.rs Check trait).
+# ---------------------------------------------------------------------------
+
+
+class Check:
+    """Streaming checksum with O(log) range combine (reference src/check.rs:16-35)."""
+
+    name = "check"
+
+    def sum(self) -> int:
+        raise NotImplementedError
+
+    def amount(self) -> int:
+        """Bytes folded in so far (u32, wraps like the reference)."""
+        raise NotImplementedError
+
+    def update(self, data: bytes) -> None:
+        raise NotImplementedError
+
+    def combine(self, other: "Check") -> None:
+        """Fold ``other`` (checksum of the bytes following ours) into self."""
+        raise NotImplementedError
+
+    @classmethod
+    def from_sum(cls, value: int, amount: int) -> "Check":
+        """Build a check directly from a known (sum, amount) — used when the
+        per-block sums were computed on device."""
+        obj = cls()
+        obj._sum = value  # type: ignore[attr-defined]
+        obj._amount = amount & U32  # type: ignore[attr-defined]
+        return obj
+
+
+class Crc32(Check):
+    """CRC32 with combine (reference src/check.rs:132-164)."""
+
+    name = "crc32"
+
+    def __init__(self) -> None:
+        self._sum = 0
+        self._amount = 0
+
+    def sum(self) -> int:
+        return self._sum & U32
+
+    def amount(self) -> int:
+        return self._amount & U32
+
+    def update(self, data: bytes) -> None:
+        self._sum = zlib.crc32(data, self._sum) & U32
+        self._amount = (self._amount + len(data)) & U32
+
+    def combine(self, other: Check) -> None:
+        self._sum = crc32_combine(self._sum, other.sum(), other.amount())
+        self._amount = (self._amount + other.amount()) & U32
+
+
+class Adler32(Check):
+    """Adler32 with combine (reference src/check.rs:85-129)."""
+
+    name = "adler32"
+
+    def __init__(self) -> None:
+        self._sum = 1
+        self._amount = 0
+
+    def sum(self) -> int:
+        return self._sum & U32
+
+    def amount(self) -> int:
+        return self._amount & U32
+
+    def update(self, data: bytes) -> None:
+        self._sum = zlib.adler32(data, self._sum) & U32
+        self._amount = (self._amount + len(data)) & U32
+
+    def combine(self, other: Check) -> None:
+        self._sum = adler32_combine(self._sum, other.sum(), other.amount())
+        self._amount = (self._amount + other.amount()) & U32
+
+    @classmethod
+    def from_sum(cls, value: int, amount: int) -> "Adler32":
+        obj = cls()
+        obj._sum = value
+        obj._amount = amount & U32
+        return obj
+
+
+class PassThroughCheck(Check):
+    """No-op check for formats with per-block or no checksums
+    (reference src/check.rs:166-198)."""
+
+    name = "passthrough"
+
+    def __init__(self) -> None:
+        self._amount = 0
+
+    def sum(self) -> int:
+        return 0
+
+    def amount(self) -> int:
+        return self._amount & U32
+
+    def update(self, data: bytes) -> None:
+        self._amount = (self._amount + len(data)) & U32
+
+    def combine(self, other: Check) -> None:
+        self._amount = (self._amount + other.amount()) & U32
+
+    @classmethod
+    def from_sum(cls, value: int, amount: int) -> "PassThroughCheck":
+        obj = cls()
+        obj._amount = amount & U32
+        return obj

@@ -1,0 +1,10 @@
+from gzp_tpu_torch.formats.base import BlockFormatSpec, FooterValues, FormatSpec  # noqa: F401
+from gzp_tpu_torch.formats.deflate_formats import (  # noqa: F401
+    Bgzf,
+    Gzip,
+    Mgzip,
+    RawDeflate,
+    Zlib,
+)
+
+ALL_FORMATS = {f.name: f for f in (Gzip, Zlib, RawDeflate, Mgzip, Bgzf)}

@@ -1,0 +1,366 @@
+"""Batched DEFLATE encoder: matching, parse, token emission, bit packing
+and member framing, for a whole batch of blocks at once.
+
+Counterpart of ``gzp_tpu/ops/deflate_kernel.py`` for the block-member
+formats (Mgzip, BGZF): every block becomes a standalone gzip member that
+leaves the device fully framed (header with the per-format size field,
+dynamic-or-fixed Huffman payload, CRC32 + ISIZE footer). The stages are
+
+1. match (:func:`match_stage`): LZ77 candidates, CUDA kernels K1, K2, K6;
+2. parse (:func:`parse_stage`): the greedy parse as a δ-state scan;
+3. emit (:func:`block_entries`): symbols, Huffman tables, per-position
+   (value, width) bit entries;
+4. pack: K10 plus a scatter of finished words;
+5. finish (:func:`emit_stage`): CRC32, framing, :func:`compact_outputs`.
+
+Tensors stay on the device the input is on. There is no compile step:
+:func:`get_encoder` returns a plain function.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from gzp_tpu_torch.constants import (
+    BGZF_HEADER_SIZE,
+    MAX_DIST,
+    MAX_MATCH,
+    MGZIP_HEADER_SIZE,
+    MIN_MATCH,
+)
+from gzp_tpu_torch.ops import huffman, lz
+from gzp_tpu_torch.ops.checksum import crc32_device
+from gzp_tpu_torch.ops.lz_cuda import best_matches_cuda
+from gzp_tpu_torch.ops.pack_cuda import pack_entries_sortscan_cuda
+
+I64 = torch.int64
+
+
+def _member_header_template(mode: str, level: int) -> np.ndarray:
+    """Constant member header bytes (size field zeroed) for mgzip/bgzf.
+
+    Byte layouts per reference src/mgzip.rs:244-278 and src/bgzf.rs:272-303.
+    """
+    if level >= 9:
+        xfl = 2
+    elif level <= 1:
+        xfl = 4
+    else:
+        xfl = 0
+    base = [31, 139, 8, 4, 0, 0, 0, 0, xfl, 255]
+    if mode == "mgzip":
+        hdr = base + [8, 0, ord("I"), ord("G"), 4, 0, 0, 0, 0, 0]  # XLEN=8, SID 'IG', SLEN=4, BLEN u32
+        assert len(hdr) == MGZIP_HEADER_SIZE
+    elif mode == "bgzf":
+        hdr = base + [6, 0, ord("B"), ord("C"), 2, 0, 0, 0]  # XLEN=6, SID 'BC', SLEN=2, BSIZE u16
+        assert len(hdr) == BGZF_HEADER_SIZE
+    else:
+        raise ValueError(mode)
+    return np.array(hdr, dtype=np.uint8)
+
+
+@dataclass(frozen=True)
+class DeflateEncodeConfig:
+    block_len: int  # N: padded block size
+    mode: str  # 'stream' | 'mgzip' | 'bgzf'
+    checksum: str  # 'crc32' | 'adler32' | 'none'  (per-block stream checksum)
+    level: int = 6
+    lazy: bool = True  # zlib-style lazy matching
+    payload_words: int = 3  # context words carried through the hash sort
+    lags: int = 2  # sorted-neighbour candidates examined
+    # candidate discovery: 'hash' (levels <= 5, ported) or 'suffix'
+    # (levels >= 6, the content-sorted matcher not ported yet)
+    matcher: str = "hash"
+    suffix_keys: int = 0  # suffix matcher: context words used as sort keys
+    subblocks: int = 1  # deflate blocks (own Huffman tables) per gzp block
+    dict_size: int = 0  # halo bytes carried from the previous block
+
+    @classmethod
+    def for_level(cls, block_len: int, mode: str, checksum: str, level: int,
+                  dict_size: int = 0) -> "DeflateEncodeConfig":
+        """Map a zlib-style compression level onto search-effort knobs —
+        the values ``gzp_tpu``'s ``for_level`` picks: higher levels carry
+        more context through the candidate sort and examine more sorted
+        neighbours."""
+        skw = 0
+        if level <= 1:
+            pw, lg, lazy = 2, 1, False
+        elif level <= 5:
+            pw, lg, lazy = 3, 2, True
+        elif level <= 8:
+            pw, lg, lazy, skw = 7, 16, True, 5
+        else:
+            pw, lg, lazy, skw = 7, 24, True, 6
+        # levels >= 6 on big blocks: local Huffman tables every >= 64 KiB
+        sub = 1
+        if level >= 6:
+            for cand in (4, 2):
+                if block_len % cand == 0 and block_len // cand >= 65536:
+                    sub = cand
+                    break
+        return cls(
+            block_len=block_len, mode=mode, checksum=checksum, level=level,
+            lazy=lazy, payload_words=pw, lags=lg, dict_size=dict_size,
+            suffix_keys=skw, subblocks=sub,
+            matcher="suffix" if level >= 6 else "hash",
+        )
+
+    @property
+    def header_len(self) -> int:
+        return {"stream": 0, "mgzip": MGZIP_HEADER_SIZE, "bgzf": BGZF_HEADER_SIZE}[self.mode]
+
+    @property
+    def out_words(self) -> int:
+        # worst case: all-literal block at 9 bits/byte (the dynamic table
+        # is only chosen when it beats fixed, so fixed bounds token bits)
+        # + one dynamic header and EOB per sub-block + trailers, + the
+        # reference's slack words (the same padded width keeps
+        # compact_outputs' layout identical)
+        max_bits = (
+            8 * self.header_len
+            + self.subblocks * (1344 + 9)
+            + 9 * self.block_len
+            + 7
+            + 48
+        )
+        return (max_bits + 31) // 32 + 10
+
+    @property
+    def out_bytes(self) -> int:
+        return 4 * self.out_words
+
+
+def _window_for(level: int) -> int:
+    """The reference's parse-window knob per level (used only by its
+    windowed parse, which this package does not have)."""
+    return 256 if level <= 5 else 512 if level <= 8 else 1024
+
+
+# knobs of the reference config that only choose between formulations with
+# identical output (or TPU work-arounds), with the values its for_level sets
+_REFERENCE_ONLY = {
+    "max_words": (8,),
+    "dynamic": (True,),
+    "rle_header": (True,),
+    "hash3": (False,),
+    "sample_step": (1,),
+    "pallas_match": (False, True),
+    "pack": ("sortscan", "sortscan_pallas"),
+    "placement": ("unroll",),
+    "lookup": ("f32",),
+    "parse": ("scan",),
+}
+
+
+def config_from_reference(fields: dict) -> DeflateEncodeConfig:
+    """This package's config from ``dataclasses.asdict()`` of a
+    ``gzp_tpu`` ``DeflateEncodeConfig``: the reference-only knobs are
+    dropped after checking that they hold their ``for_level`` values."""
+    fields = dict(fields)
+    for knob, allowed in _REFERENCE_ONLY.items():
+        value = fields.pop(knob)
+        if value not in allowed:
+            raise ValueError(f"{knob}={value!r}: this package implements {allowed}")
+    window = fields.pop("window")
+    if window != _window_for(fields["level"]):
+        raise ValueError(f"window={window} is not level {fields['level']}'s")
+    return DeflateEncodeConfig(**fields)
+
+
+def _ilog2(v: torch.Tensor) -> torch.Tensor:
+    """floor(log2(v)) for v >= 1 (exact: float64 holds these integers)."""
+    return torch.frexp(torch.clamp(v, min=1).to(torch.float64)).exponent.to(I64) - 1
+
+
+def length_symbols(l: torch.Tensor):
+    """DEFLATE length code (sym, extra_bits, extra_value) for lengths in
+    [3, 258], computed arithmetically: eb = max(ilog2(l-3)-2, 0), sym =
+    257 + 4*eb + ((l-3)>>eb), except 258 -> 285/0."""
+    v = torch.clamp(l.to(I64) - 3, min=0)
+    eb = torch.where(v < 8, 0, _ilog2(v) - 2)
+    sym = 257 + (eb << 2) + (v >> eb)
+    extra = v & ((1 << eb) - 1)
+    is258 = l == 258
+    return (torch.where(is258, 285, sym), torch.where(is258, 0, eb),
+            torch.where(is258, 0, extra))
+
+
+def dist_symbols(d: torch.Tensor):
+    """DEFLATE distance code (sym, extra_bits, extra_value) for distances
+    in [1, 32768]: eb = max(ilog2(d-1)-1, 0), sym = 2*eb + ((d-1)>>eb)."""
+    u = torch.clamp(d.to(I64) - 1, min=0)
+    eb = torch.where(u < 4, 0, _ilog2(u) - 1)
+    return (eb << 1) + (u >> eb), eb, u & ((1 << eb) - 1)
+
+
+def compute_symbols(data_ext, marked, l, dist):
+    """Per-position DEFLATE symbols: (sym, leb, lextra, dsym, deb, dextra,
+    is_match). ``sym`` is the literal byte at literal token positions and
+    the length symbol at match starts."""
+    is_match = marked & (l > 0)
+    lsym, leb, lextra = length_symbols(l)
+    sym = torch.where(is_match, lsym, data_ext.to(I64))
+    leb = torch.where(is_match, leb, 0)
+    lextra = torch.where(is_match, lextra, 0)
+    dsym, deb, dextra = dist_symbols(dist)
+    return sym, leb, lextra, dsym, deb, dextra, is_match
+
+
+def emit_token_entries(marked, prev_match, sym, leb, lextra, dsym_s, deb_s, dextra_s,
+                       lit_codes, lit_lens, dist_codes, dist_lens):
+    """Per-position bit entries (one <= 31-bit entry per position + EOB).
+
+    Position ``i`` emits its token's literal-or-length half; a match's
+    distance half arrives pre-stashed at position ``i+1`` (``prev_match``
+    and the ``*_s`` fields are the caller's shift of the match fields), so
+    the stream is one entry per position. Returns (bits, nbits) [R, M+1]
+    int64, the last column the end-of-block symbol.
+    """
+    code = torch.gather(lit_codes, 1, sym)
+    nb = torch.gather(lit_lens, 1, sym)
+    even_bits = code | (lextra << nb)
+    even_n = nb + leb
+    # distance symbols are read only where prev_match; elsewhere clamp
+    # whatever the unused distance lanes hold into the table
+    di = torch.clamp(dsym_s, 0, huffman.NDIST - 1)
+    dcode = torch.gather(dist_codes, 1, di)
+    dnb = torch.gather(dist_lens, 1, di)
+    odd_bits = dcode | (dextra_s << dnb)
+    odd_n = dnb + deb_s
+
+    bits = torch.where(marked, even_bits, torch.where(prev_match, odd_bits, 0))
+    nbits = torch.where(marked, even_n, torch.where(prev_match, odd_n, 0))
+    bits = torch.cat([bits, lit_codes[:, 256:257]], dim=1)
+    nbits = torch.cat([nbits, lit_lens[:, 256:257]], dim=1)
+    return bits, nbits
+
+
+def match_stage(cfg: DeflateEncodeConfig, data_u8: torch.Tensor, lengths: torch.Tensor):
+    """Stage 1: LZ77 match finding -> (match_len, match_dist) [B, N] int32."""
+    return best_matches_cuda(
+        data_u8, lengths, max_dist=MAX_DIST, max_match=MAX_MATCH, min_emit=MIN_MATCH,
+        lazy=cfg.lazy, payload_words=cfg.payload_words, lags=cfg.lags,
+    )
+
+
+def parse_stage(cfg: DeflateEncodeConfig, match_len: torch.Tensor, lengths: torch.Tensor):
+    """Stage 2: greedy parse of the match field into token starts."""
+    return lz.parse_marks_scan(match_len, lengths, min_emit=MIN_MATCH)
+
+
+def block_entries(cfg: DeflateEncodeConfig, data_u8, marked, l, match_dist):
+    """Stage 3: per block, the deflate bit entries in stream order — the
+    block header (with the dynamic table description), one entry per
+    position and the end-of-block symbol. Returns (bits, nbits) [B, E]
+    int32 (bits < 2**nbits, widths in [0, 31])."""
+    sym, leb, lextra, dsym, deb, dextra, is_match = compute_symbols(
+        data_u8, marked, l, match_dist)
+
+    def stash(x, fill=0):  # a match's distance half sits at i+1
+        return torch.cat([torch.full_like(x[:, :1], fill), x[:, :-1]], dim=1)
+
+    prev_match = stash(is_match, False)
+    dsym_s, deb_s, dextra_s = stash(dsym), stash(deb), stash(dextra)
+    lit_freq, dist_freq = huffman.position_histograms(sym, dsym_s, marked, prev_match)
+    lit_codes, lit_lens, dist_codes, dist_lens, use_dyn, dlit_lens, ddist_lens = (
+        huffman.choose_tables(lit_freq, dist_freq))
+    final = torch.ones_like(use_dyn)  # every member's one block is final
+    hfield_bits, hfield_n = huffman.dynamic_header_fields_rle(
+        dlit_lens, ddist_lens, final, use_dyn)
+    bits, nbits = emit_token_entries(
+        marked, prev_match, sym, leb, lextra, dsym_s, deb_s, dextra_s,
+        lit_codes, lit_lens, dist_codes, dist_lens,
+    )
+    all_bits = torch.cat([hfield_bits, bits], dim=1).to(torch.int32)
+    all_n = torch.cat([hfield_n, nbits], dim=1).to(torch.int32)
+    return all_bits, all_n
+
+
+def _le_bytes(v: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """[...] integers -> [..., nbytes] little-endian uint8."""
+    shifts = 8 * torch.arange(nbytes, device=v.device)
+    return ((v.to(I64)[..., None] >> shifts) & 0xFF).to(torch.uint8)
+
+
+def emit_stage(cfg: DeflateEncodeConfig, data_u8, lengths, marked, l, match_dist):
+    """Stages 3-5 for member modes: entries, packing and framing. Returns
+    dict ``out`` [B, out_bytes] uint8 (framed members), ``out_len`` [B]
+    int32, ``check`` [B] int64 (each member's CRC32)."""
+    b, n = data_u8.shape
+    if n != cfg.block_len:
+        raise ValueError(f"block width {n} != config block_len {cfg.block_len}")
+    all_bits, all_n = block_entries(cfg, data_u8, marked, l, match_dist)
+    hl = cfg.header_len
+    words, total_bits = pack_entries_sortscan_cuda(all_bits, all_n, 8 * hl, cfg.out_words)
+    end_bits = (total_bits.to(I64) + 7) & ~7
+    by = _le_bytes(words, 4).reshape(b, cfg.out_bytes)
+    deflate_bytes = (end_bits >> 3) - hl
+
+    by[:, :hl] = torch.as_tensor(_member_header_template(cfg.mode, cfg.level), device=by.device)
+    if cfg.mode == "mgzip":
+        by[:, 16:20] = _le_bytes(deflate_bytes + MGZIP_HEADER_SIZE + 8, 4)
+    else:  # bgzf: BSIZE u16 = total member size - 1
+        by[:, 16:18] = _le_bytes(deflate_bytes + BGZF_HEADER_SIZE + 8 - 1, 2)
+    # footer: crc32 (of the uncompressed block) + ISIZE, little-endian
+    mcrc = crc32_device(data_u8, lengths)
+    foot = torch.cat([_le_bytes(mcrc, 4), _le_bytes(lengths, 4)], dim=1)
+    foot_pos = (hl + deflate_bytes)[:, None] + torch.arange(8, device=by.device)[None, :]
+    by.scatter_(1, foot_pos, foot)
+    out_len = (hl + deflate_bytes + 8).to(torch.int32)
+    return {"out": by, "out_len": out_len, "check": mcrc}
+
+
+def compact_outputs(out: torch.Tensor, out_len: torch.Tensor) -> torch.Tensor:
+    """Pack per-block framed outputs end to end into one flat buffer.
+
+    ``out`` is [B, M] uint8 with ``out_len[i]`` valid bytes per row;
+    returns ``flat`` [B*M] uint8 where block ``i``'s bytes occupy
+    ``[sum(out_len[:i]), sum(out_len[:i+1]))`` and the rest is zero, so
+    the host fetches ``flat[:sum(out_len)]`` only. The TPU sorts
+    (destination word, word) pairs; the key is the destination, so here
+    each byte is scattered to it.
+    """
+    b, m = out.shape
+    ln = out_len.to(I64)
+    starts = torch.cumsum(ln, 0) - ln
+    j = torch.arange(m, device=out.device)[None, :]
+    dest = torch.where(j < ln[:, None], starts[:, None] + j, b * m)
+    flat = torch.zeros(b * m + 1, dtype=torch.uint8, device=out.device)
+    flat.scatter_(0, dest.reshape(-1), out.reshape(-1))
+    return flat[: b * m]
+
+
+def get_encoder(cfg: DeflateEncodeConfig, compact: bool = False):
+    """Batched encoder for a config: ``encode(data_u8 [B, N] uint8,
+    lengths [B] int32) -> dict`` (see :func:`emit_stage`; with
+    ``compact=True`` also ``flat``, see :func:`compact_outputs`). Runs on
+    the device of its inputs.
+
+    Implemented: the member modes (Mgzip, BGZF) with the hash matcher
+    (levels 0-5). Stream mode and the suffix matcher raise
+    ``NotImplementedError``.
+    """
+    if cfg.mode == "stream":
+        raise NotImplementedError(
+            "stream mode (Gzip/Zlib/RawDeflate) is not ported yet: ROADMAP.md queue A, "
+            "'Stream mode'")
+    if cfg.matcher != "hash":
+        raise NotImplementedError(
+            f"level {cfg.level} uses the suffix matcher (kernels K4, K5, K7-K9), "
+            "not ported yet: ROADMAP.md queues A and B, 'Levels 6-9'")
+    if cfg.checksum not in ("crc32", "none") or cfg.dict_size or cfg.subblocks != 1:
+        raise NotImplementedError(f"member mode with checksum={cfg.checksum!r}, "
+                                  f"dict_size={cfg.dict_size}, subblocks={cfg.subblocks}")
+
+    def encode(data_u8: torch.Tensor, lengths: torch.Tensor) -> dict:
+        match_len, match_dist = match_stage(cfg, data_u8, lengths)
+        marked, l = parse_stage(cfg, match_len, lengths)
+        res = emit_stage(cfg, data_u8, lengths, marked, l, match_dist)
+        if compact:
+            res["flat"] = compact_outputs(res["out"], res["out_len"])
+        return res
+
+    return encode

@@ -1,0 +1,44 @@
+"""gzp_tpu_torch stands alone: it imports with jax and gzp_tpu blocked, and
+no file of it names either.
+
+tests/conftest.py imports jax into every test process, so the import
+check runs in a fresh interpreter.
+"""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+PKG = pathlib.Path(__file__).resolve().parent.parent / "gzp_tpu_torch"
+
+_BLOCKED_IMPORT = """
+import pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["gzp_tpu"] = None
+import gzp_tpu_torch
+for m in pkgutil.walk_packages(gzp_tpu_torch.__path__, "gzp_tpu_torch."):
+    __import__(m.name)
+print("ok", len([m for m in sys.modules if m.startswith("gzp_tpu_torch")]))
+"""
+
+
+def test_imports_without_jax_or_gzp_tpu():
+    r = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT],
+        cwd=PKG.parent, capture_output=True, text=True, timeout=120,
+    )
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("ok")
+    assert not any(m == "jax" or m.startswith("jax.") for m in r.stdout.split())
+
+
+def test_no_file_names_jax_or_gzp_tpu():
+    pattern = re.compile(r"import jax|from jax|gzp_tpu\.")
+    offenders = []
+    for f in PKG.rglob("*"):
+        if f.is_file() and f.suffix in (".py", ".cu", ".cuh"):
+            for i, line in enumerate(f.read_text().splitlines(), 1):
+                if pattern.search(line):
+                    offenders.append(f"{f.relative_to(PKG.parent)}:{i}: {line.strip()}")
+    assert not offenders, "\n".join(offenders)
