@@ -8,13 +8,19 @@ Phases (any failure raises and exits non-zero; no result line then):
 1. device  — the card's name and power limit (nvidia-smi);
 2. build   — every kernel from ``gzp_tpu_torch/csrc`` with nvcc for
              sm_90a, printing registers, shared memory and spills;
-3. kernels — at the main path's shapes (64 blocks of 128 KiB: text, one
+3. kernels — at the main paths' shapes (64 blocks of 128 KiB: text, one
              all-zero block, one random block), each kernel held against
              its plain PyTorch version on the card (exact equality on
-             every output) and timed with CUDA events beside its bound;
-4. path    — 256 MiB of text through ``ZBuilder(Mgzip)`` at level 3 on
-             the card; gzip must restore it, every kernel must have been
-             launched, and the first blocks must equal a CPU run's bytes;
+             every output) and timed with CUDA events beside its bound:
+             K1, K2 (and K3's function), K6 and K10 at level 3's config,
+             then K7, K4, K8, K1, K5 and K9 at level 6's (K8 also at
+             level 9's 24 lags), with a stage split per level;
+4. paths   — 256 MiB of text through ``ZBuilder(Mgzip)`` on the card at
+             level 3, then at level 6; for each, gzip must restore it,
+             every kernel of the path must have been launched, the first
+             blocks must equal a CPU run's bytes, and the size is compared
+             with zlib's at the same level per 128 KiB block (level 6 must
+             not exceed it);
 5. result  — one ``kernels`` JSON line, then the last line
              ``{"ok": true, "device": {...}}``.
 """
@@ -38,6 +44,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_OPS_PER_S = 33.5e12
 B, N = 64, 131072
 PATH_BYTES = 256 << 20
+SRC = "gzp_tpu_torch/csrc/"
+PALLAS = "gzp_tpu/ops/lz_pallas.py:"
 
 
 def make_corpus(nbytes: int) -> bytes:
@@ -86,6 +94,8 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 def max_abs_err(got, want) -> int:
     """Largest difference over every output of a kernel and its plain version."""
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
     err = 0
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype, (g.shape, w.shape, g.dtype, w.dtype)
@@ -110,7 +120,8 @@ def hold(name, kernel, plain, args, kwargs, nbytes, nops, source, replaces):
         "library_ms": None,
     }
     print(f"kernel {name}: max_abs_err {err}, {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-          f"bound {row['bound_ms']:.4f} ms by {row['bound_by']})", flush=True)
+          f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}; {nbytes} bytes, "
+          f"{nops} ops)", flush=True)
     if err != 0:
         raise AssertionError(f"{name} disagrees with its plain version: max_abs_err {err}")
     return got, row
@@ -126,14 +137,235 @@ def members(blob: bytes) -> list[bytes]:
     return out
 
 
+def level3_kernels(data, lengths, halo):
+    """K1, K2, K3's function, K6 and K10 at level 3's config, and the
+    level-3 stage split. Returns {id: row}."""
+    from gzp_tpu_torch.ops import deflate_kernel as dk
+    from gzp_tpu_torch.ops import lz_cuda, pack_cuda
+    from gzp_tpu_torch.ops.lz import _pos_bits
+
+    cfg = dk.DeflateEncodeConfig.for_level(N, "mgzip", "none", 3)
+    pw, lags, pos_bits = cfg.payload_words, cfg.lags, _pos_bits(N)
+    npad = lz_cuda.padded_len(N)
+    rows = {}
+    (key, pays), rows["K1"] = hold(
+        "K1 build_keys", lz_cuda.build_keys_cuda, lz_cuda.build_keys_plain, (data,),
+        dict(pos_bits=pos_bits, payload_words=pw),
+        nbytes=B * N + (1 + pw) * B * npad * 4, nops=B * npad * (7 * pw + 4),
+        source=SRC + "build_keys.cu", replaces=PALLAS + "121",
+    )
+    sk, order = torch.sort(key.to(torch.int64) & 0xFFFFFFFF, dim=1)
+    spays = torch.gather(pays, 2, order.expand(pw, -1, -1))
+    nb_k2 = B * npad * (8 + 4 * pw) + 4 * B + 2 * B * npad * 4
+    (sp, packed), rows["K2"] = hold(
+        "K2 neighbor", lz_cuda.neighbor_cuda, lz_cuda.neighbor_plain, (sk, spays, halo),
+        dict(pos_bits=pos_bits, lags=lags, max_dist=32768),
+        nbytes=nb_k2, nops=B * npad * lags * (10 + 4 * pw),
+        source=SRC + "neighbor.cu", replaces=PALLAS + "194",
+    )
+    # K3's function: the same kernel at lags = 4 (on no path: no level uses
+    # lags > 2 with at most 3 context words)
+    _, rows["K3"] = hold(
+        "K3 neighbor lags=4", lz_cuda.neighbor_cuda, lz_cuda.neighbor_plain,
+        (sk, spays, halo), dict(pos_bits=pos_bits, lags=4, max_dist=32768),
+        nbytes=nb_k2, nops=B * npad * 4 * (10 + 4 * pw),
+        source=SRC + "neighbor.cu", replaces=PALLAS + "256",
+    )
+    packed_pos = torch.empty_like(packed).scatter_(1, sp.to(torch.int64), packed)
+    (ml, md), rows["K6"] = hold(
+        "K6 match_tail", lz_cuda.match_tail_cuda, lz_cuda.match_tail_plain,
+        (data, packed_pos, lengths, halo),
+        dict(base=0, payload_bytes=4 * pw, max_match=258, min_emit=3, lazy=True),
+        nbytes=B * N + B * npad * 4 + 8 * B + 2 * B * N * 4, nops=B * npad * 90,
+        source=SRC + "match_tail.cu", replaces=PALLAS + "472",
+    )
+    marked, ln = dk.parse_stage(cfg, ml, lengths)
+    all_bits, all_n = dk.block_entries(cfg, data, marked, ln, md)
+    e = all_bits.shape[1]
+    ep = pack_cuda.prescan_len(e)
+    _, rows["K10"] = hold(
+        "K10 pack_prescan", pack_cuda.pack_prescan_cuda, pack_cuda.pack_prescan_plain,
+        (all_bits, all_n, 8 * cfg.header_len), {},
+        nbytes=2 * B * e * 4 + 2 * B * ep * 4 + 4 * B, nops=B * ep * 50,
+        source=SRC + "pack_prescan.cu", replaces="gzp_tpu/ops/pack_pallas.py:65",
+    )
+
+    # where one batch's device time goes, stage by stage (CUDA events)
+    words_args = (all_bits, all_n, 8 * cfg.header_len, cfg.out_words)
+    encode = dk.get_encoder(cfg, compact=True)
+    stages = {
+        "match": time_ms(lambda: dk.match_stage(cfg, data, lengths), iters=5),
+        "parse": time_ms(lambda: dk.parse_stage(cfg, ml, lengths), iters=5),
+        "entries": time_ms(lambda: dk.block_entries(cfg, data, marked, ln, md), iters=5),
+        "pack": time_ms(lambda: pack_cuda.pack_entries_sortscan_cuda(*words_args), iters=5),
+        "crc32": time_ms(lambda: dk.crc32_device(data, lengths), iters=5),
+        "encode": time_ms(lambda: encode(data, lengths), iters=5),
+    }
+    print("stages ms per 64x128KiB batch: " + json.dumps(stages), flush=True)
+    return rows
+
+
+def level6_kernels(data, lengths, halo):
+    """K7, K4, K8, K1, K5 and K9 at level 6's config (K8 also at level 9's
+    24 lags, K4 + K5 also against K2's plain version at 7 words), and the
+    level-6 stage split. Returns {id: row}."""
+    from gzp_tpu_torch.ops import deflate_kernel as dk
+    from gzp_tpu_torch.ops import lz_cuda, pack_cuda
+    from gzp_tpu_torch.ops.lz import _pos_bits
+
+    cfg = dk.DeflateEncodeConfig.for_level(N, "mgzip", "none", 6)
+    pw, lags, skw, pos_bits = cfg.payload_words, cfg.lags, cfg.suffix_keys, _pos_bits(N)
+    assert (pw, lags, skw, cfg.matcher) == (7, 16, 5, "suffix"), cfg
+    npad = lz_cuda.padded_len(N)
+    slots = B * npad
+    rows = {}
+    (keys, pos), rows["K7"] = hold(
+        "K7 build_suffix_keys", lz_cuda.build_suffix_keys_cuda,
+        lz_cuda.build_suffix_keys_plain, (data,), dict(payload_words=pw),
+        nbytes=B * N + (pw + 1) * slots * 4, nops=slots * (8 * pw + 2),
+        source=SRC + "build_suffix_keys.cu", replaces=PALLAS + "616",
+    )
+    order = lz_cuda.suffix_order(keys, pos, skw)
+    skeys = torch.gather(keys, 2, order.expand(pw, -1, -1))
+    sp = torch.gather(pos, 1, order)
+
+    def lcp_bytes(lcp):
+        """Bytes K4 must move for these inputs: each slot's words up to the
+        first that differs from its neighbour's, and one output word."""
+        return int(4 * (torch.clamp(lcp.to(torch.int64) // 4 + 1, max=pw).sum() + lcp.numel()))
+
+    adj_want = lz_cuda.lcp_lags_plain(skeys, 1, big_endian=True)
+    adj3, rows["K4"] = hold(
+        "K4 lcp_lags big-endian lag 1", lz_cuda.lcp_lags_cuda, lz_cuda.lcp_lags_plain,
+        (skeys, 1), dict(big_endian=True),
+        nbytes=lcp_bytes(adj_want), nops=slots * 8 * int(pw),
+        source=SRC + "lcp_lags.cu", replaces=PALLAS + "315",
+    )
+    adj = adj3[0]
+    merge_bytes = 2 * slots * 4 + 4 * B + slots * 4
+    packed_s, rows["K8"] = hold(
+        "K8 suffix_merge lags=16", lz_cuda.suffix_merge_cuda, lz_cuda.suffix_merge_plain,
+        (sp, adj, halo), dict(lags=lags, max_dist=32768, payload_bytes=4 * pw),
+        nbytes=merge_bytes, nops=slots * lags * 30,
+        source=SRC + "suffix_merge.cu", replaces=PALLAS + "697",
+    )
+    hold("K8 suffix_merge lags=24 (level 9)", lz_cuda.suffix_merge_cuda,
+         lz_cuda.suffix_merge_plain, (sp, adj, halo),
+         dict(lags=24, max_dist=32768, payload_bytes=4 * pw),
+         nbytes=merge_bytes, nops=slots * 24 * 30,
+         source=SRC + "suffix_merge.cu", replaces=PALLAS + "697")
+    packed_s_pos = lz_cuda.restore_order(sp, packed_s)
+
+    (key, pays), _ = hold(
+        "K1 build_keys pw=7", lz_cuda.build_keys_cuda, lz_cuda.build_keys_plain, (data,),
+        dict(pos_bits=pos_bits, payload_words=pw),
+        nbytes=B * N + (1 + pw) * slots * 4, nops=slots * (7 * pw + 4),
+        source=SRC + "build_keys.cu", replaces=PALLAS + "121",
+    )
+    sk, horder = torch.sort(key.to(torch.int64) & 0xFFFFFFFF, dim=1)
+    spays = torch.gather(pays, 2, horder.expand(pw, -1, -1))
+    lcp_le_want = lz_cuda.lcp_lags_plain(spays, 2, big_endian=False)
+    lcps, _ = hold(
+        "K4 lcp_lags little-endian lags 1-2", lz_cuda.lcp_lags_cuda, lz_cuda.lcp_lags_plain,
+        (spays, 2), dict(big_endian=False),
+        nbytes=lcp_bytes(lcp_le_want), nops=2 * slots * 8 * pw,
+        source=SRC + "lcp_lags.cu", replaces=PALLAS + "315",
+    )
+    (sp_h, packed_h), rows["K5"] = hold(
+        "K5 hash_merge", lz_cuda.hash_merge_cuda, lz_cuda.hash_merge_plain,
+        (sk, lcps, halo), dict(pos_bits=pos_bits, max_dist=32768, payload_bytes=4 * pw),
+        nbytes=slots * 8 + 2 * slots * 4 + 4 * B + 2 * slots * 4, nops=slots * 2 * 15,
+        source=SRC + "hash_merge.cu", replaces=PALLAS + "334",
+    )
+    # K4 + K5 (the 7-word route of neighbor_cuda) computes K2's function
+    cross = lz_cuda.neighbor_plain(sk, spays, halo, pos_bits=pos_bits, lags=2, max_dist=32768)
+    err = max_abs_err((sp_h, packed_h), cross)
+    print(f"check K4 + K5 vs neighbor_plain at pw=7: max_abs_err {err}", flush=True)
+    if err != 0:
+        raise AssertionError("K4 + K5 disagree with K2's plain version at pw=7")
+    packed_h_pos = lz_cuda.restore_order(sp_h, packed_h)
+    (ml, md), rows["K9"] = hold(
+        "K9 match_tail2", lz_cuda.match_tail2_cuda, lz_cuda.match_tail2_plain,
+        (data, packed_h_pos, packed_s_pos, lengths, halo),
+        dict(base=0, payload_bytes=4 * pw, max_match=258, min_emit=3, lazy=True),
+        nbytes=B * N + 2 * slots * 4 + 8 * B + 2 * B * N * 4, nops=slots * 140,
+        source=SRC + "match_tail2.cu", replaces=PALLAS + "797",
+    )
+
+    marked, ln = dk.parse_stage(cfg, ml, lengths)
+    all_bits, all_n = dk.block_entries(cfg, data, marked, ln, md)
+    words_args = (all_bits, all_n, 8 * cfg.header_len, cfg.out_words)
+    encode = dk.get_encoder(cfg, compact=True)
+    stages = {
+        "match": time_ms(lambda: dk.match_stage(cfg, data, lengths), iters=5),
+        "match.suffix_pass": time_ms(lambda: lz_cuda.suffix_pass(
+            data, halo, payload_words=pw, lags=lags, suffix_keys=skw, max_dist=32768), iters=5),
+        "match.content_sort": time_ms(lambda: lz_cuda.suffix_order(keys, pos, skw), iters=5),
+        "match.hash_pass": time_ms(lambda: lz_cuda.hash_pass(
+            data, halo, payload_words=pw, lags=2, max_dist=32768), iters=5),
+        "match.tail": time_ms(lambda: lz_cuda.match_tail2_cuda(
+            data, packed_h_pos, packed_s_pos, lengths, halo, base=0, payload_bytes=4 * pw,
+            max_match=258, min_emit=3, lazy=True), iters=5),
+        "parse": time_ms(lambda: dk.parse_stage(cfg, ml, lengths), iters=5),
+        "entries": time_ms(lambda: dk.block_entries(cfg, data, marked, ln, md), iters=5),
+        "pack": time_ms(lambda: pack_cuda.pack_entries_sortscan_cuda(*words_args), iters=5),
+        "crc32": time_ms(lambda: dk.crc32_device(data, lengths), iters=5),
+        "encode": time_ms(lambda: encode(data, lengths), iters=5),
+    }
+    print("stages ms per 64x128KiB batch, level 6: " + json.dumps(stages), flush=True)
+    return rows
+
+
+def drive(level, corpus, kernels, smi):
+    """The main path at ``level``: every count set to 0 just before, read
+    just after. Returns {kernel name: launches}."""
+    from gzp_tpu_torch import Mgzip, ZBuilder
+    from gzp_tpu_torch.runtime import cuda_lib
+
+    def compress(blob: bytes, threads: int = B, device=None) -> bytes:
+        buf = io.BytesIO()
+        w = (ZBuilder(Mgzip).num_threads(threads).compression_level(level).device(device)
+             .from_writer(buf))
+        w.write(blob)
+        w.finish()
+        return buf.getvalue()
+
+    compress(corpus[: B * N])  # warm-up: allocator, pinned buffers
+    torch.cuda.synchronize()
+    for k in cuda_lib.registered():
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = compress(corpus)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in cuda_lib.registered()}
+    print(f"path level {level}: launches {json.dumps(launches)}", flush=True)
+    missing = [k.name for k in kernels if launches[k.name] <= 0]
+    if missing:
+        raise AssertionError(f"level {level}: kernels of the path never launched: {missing}")
+    if gzip.decompress(out) != corpus:
+        raise AssertionError(f"level {level}: gzip.decompress does not restore the input")
+    card = members(out)
+    cpu = members(compress(corpus[: 4 * N], threads=4, device="cpu"))
+    if card[:4] != cpu:
+        raise AssertionError(f"level {level}: card members differ from the CPU run's "
+                             "on the first 4 blocks")
+    zsize = sum(len(zlib.compress(corpus[i: i + N], level)) for i in range(0, len(corpus), N))
+    gbps = len(corpus) / secs / 1e9
+    print(f"path level {level}: {len(corpus)} B -> {len(out)} B, ratio "
+          f"{len(corpus) / len(out):.4f}, size vs zlib-{level} per 128 KiB block "
+          f"{len(out) / zsize:.4f}; first 4 members equal the CPU run's; {secs:.3f} s = "
+          f"{gbps:.4f} GB/s end to end on {smi}", flush=True)
+    if level >= 6 and len(out) > zsize:
+        raise AssertionError(f"level {level}: {len(out)} B exceeds zlib's {zsize} B")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from gzp_tpu_torch import Mgzip, ZBuilder
-    from gzp_tpu_torch.ops import deflate_kernel as dk
     from gzp_tpu_torch.ops import lz_cuda, pack_cuda
-    from gzp_tpu_torch.ops.lz import _pos_bits
     from gzp_tpu_torch.runtime import cuda_lib
 
     # ---- 1. device
@@ -154,8 +386,10 @@ def main() -> int:
             if "ptxas info" in line and ("Used" in line or "spill" in line or "Compiling" in line):
                 print(f"  {name}: {line.strip()}")
     sys.stdout.flush()
+    if len(logs) != len(cuda_lib.registered()):
+        raise AssertionError(f"built {sorted(logs)}, expected {len(cuda_lib.registered())}")
 
-    # ---- 3. kernels at the main path's shapes
+    # ---- 3. kernels at the main paths' shapes
     dev = torch.device("cuda", 0)
     text = np.frombuffer(make_corpus(B * N), np.uint8).reshape(B, N).copy()
     text[1] = 0
@@ -163,115 +397,36 @@ def main() -> int:
     data = torch.from_numpy(text).to(dev)
     lengths = torch.full((B,), N, dtype=torch.int32, device=dev)
     halo = torch.zeros((B,), dtype=torch.int32, device=dev)
-    cfg = dk.DeflateEncodeConfig.for_level(N, "mgzip", "none", 3)
-    pw, lags, pos_bits = cfg.payload_words, cfg.lags, _pos_bits(N)
-    npad = lz_cuda.padded_len(N)
-    src = "gzp_tpu_torch/csrc/"
-    rows = []
+    rows = level3_kernels(data, lengths, halo)
+    rows.update(level6_kernels(data, lengths, halo))
 
-    (key, pays), row = hold(
-        "K1 build_keys", lz_cuda.build_keys_cuda, lz_cuda.build_keys_plain, (data,),
-        dict(pos_bits=pos_bits, payload_words=pw),
-        nbytes=B * N + (1 + pw) * B * npad * 4, nops=B * npad * (7 * pw + 4),
-        source=src + "build_keys.cu", replaces="gzp_tpu/ops/lz_pallas.py:121",
-    )
-    rows.append(row)
-    sk, order = torch.sort(key.to(torch.int64) & 0xFFFFFFFF, dim=1)
-    spays = torch.gather(pays, 2, order.expand(pw, -1, -1))
-    nb_k2 = B * npad * (8 + 4 * pw) + 4 * B + 2 * B * npad * 4
-    (sp, packed), row = hold(
-        "K2 neighbor", lz_cuda.neighbor_cuda, lz_cuda.neighbor_plain, (sk, spays, halo),
-        dict(pos_bits=pos_bits, lags=lags, max_dist=32768),
-        nbytes=nb_k2, nops=B * npad * lags * (10 + 4 * pw),
-        source=src + "neighbor.cu", replaces="gzp_tpu/ops/lz_pallas.py:194",
-    )
-    rows.append(row)
-    # K3's function: the same kernel at lags = 4 (not on the level-3 path)
-    _, k3 = hold(
-        "K3 neighbor lags=4", lz_cuda.neighbor_cuda, lz_cuda.neighbor_plain,
-        (sk, spays, halo), dict(pos_bits=pos_bits, lags=4, max_dist=32768),
-        nbytes=nb_k2, nops=B * npad * 4 * (10 + 4 * pw),
-        source=src + "neighbor.cu", replaces="gzp_tpu/ops/lz_pallas.py:256",
-    )
-    packed_pos = torch.empty_like(packed).scatter_(1, sp.to(torch.int64), packed)
-    (ml, md), row = hold(
-        "K6 match_tail", lz_cuda.match_tail_cuda, lz_cuda.match_tail_plain,
-        (data, packed_pos, lengths, halo),
-        dict(base=0, payload_bytes=4 * pw, max_match=258, min_emit=3, lazy=True),
-        nbytes=B * N + B * npad * 4 + 8 * B + 2 * B * N * 4, nops=B * npad * 90,
-        source=src + "match_tail.cu", replaces="gzp_tpu/ops/lz_pallas.py:472",
-    )
-    rows.append(row)
-    marked, ln = dk.parse_stage(cfg, ml, lengths)
-    all_bits, all_n = dk.block_entries(cfg, data, marked, ln, md)
-    e = all_bits.shape[1]
-    ep = pack_cuda.prescan_len(e)
-    _, row = hold(
-        "K10 pack_prescan", pack_cuda.pack_prescan_cuda, pack_cuda.pack_prescan_plain,
-        (all_bits, all_n, 8 * cfg.header_len), {},
-        nbytes=2 * B * e * 4 + 2 * B * ep * 4 + 4 * B, nops=B * ep * 50,
-        source=src + "pack_prescan.cu", replaces="gzp_tpu/ops/pack_pallas.py:65",
-    )
-    rows.append(row)
-    print(json.dumps({"k3_check": k3}), flush=True)
-
-    # where one batch's device time goes, stage by stage (CUDA events)
-    words_args = (all_bits, all_n, 8 * cfg.header_len, cfg.out_words)
-    encode = dk.get_encoder(cfg, compact=True)
-    stages = {
-        "match": time_ms(lambda: dk.match_stage(cfg, data, lengths), iters=5),
-        "parse": time_ms(lambda: dk.parse_stage(cfg, ml, lengths), iters=5),
-        "entries": time_ms(lambda: dk.block_entries(cfg, data, marked, ln, md), iters=5),
-        "pack": time_ms(lambda: pack_cuda.pack_entries_sortscan_cuda(*words_args), iters=5),
-        "crc32": time_ms(lambda: dk.crc32_device(data, lengths), iters=5),
-        "encode": time_ms(lambda: encode(data, lengths), iters=5),
-    }
-    print("stages ms per 64x128KiB batch: " + json.dumps(stages), flush=True)
-
-    # ---- 4. the main path: ZBuilder(Mgzip) at level 3 on the card
+    # ---- 4. the main paths: ZBuilder(Mgzip) at levels 3 and 6 on the card
     t0 = time.perf_counter()
     corpus = make_corpus(PATH_BYTES)
     print(f"path: {len(corpus)} bytes of corpus made in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    l3 = drive(3, corpus, [lz_cuda.BUILD_KEYS, lz_cuda.NEIGHBOR, lz_cuda.MATCH_TAIL,
+                           pack_cuda.PACK_PRESCAN], smi)
+    l6 = drive(6, corpus, [lz_cuda.BUILD_KEYS, lz_cuda.LCP_LAGS, lz_cuda.HASH_MERGE,
+                           lz_cuda.BUILD_SUFFIX_KEYS, lz_cuda.SUFFIX_MERGE,
+                           lz_cuda.MATCH_TAIL2, pack_cuda.PACK_PRESCAN], smi)
 
-    def compress(blob: bytes, threads: int = B, device=None) -> bytes:
-        buf = io.BytesIO()
-        w = (ZBuilder(Mgzip).num_threads(threads).compression_level(3).device(device)
-             .from_writer(buf))
-        w.write(blob)
-        w.finish()
-        return buf.getvalue()
-
-    compress(corpus[: B * N])  # warm-up: allocator, pinned buffers, cuBLAS
-    torch.cuda.synchronize()
-    kernels = [lz_cuda.BUILD_KEYS, lz_cuda.NEIGHBOR, lz_cuda.MATCH_TAIL, pack_cuda.PACK_PRESCAN]
-    for k in kernels:
-        k.launches = 0
-    t0 = time.perf_counter()
-    out = compress(corpus)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = [k.launches for k in kernels]
-    for row, n_launch in zip(rows, launches):
-        row["launches"] = n_launch
-    print(f"path: launches {dict(zip([r['name'] for r in rows], launches))}")
-    if min(launches) <= 0:
-        raise AssertionError(f"a kernel of the path was never launched: {launches}")
-    if gzip.decompress(out) != corpus:
-        raise AssertionError("gzip.decompress does not restore the input")
-    card = members(out)
-    cpu = members(compress(corpus[: 4 * N], threads=4, device="cpu"))
-    if card[:4] != cpu:
-        raise AssertionError("card members differ from the CPU run's on the first 4 blocks")
-    zsize = sum(len(zlib.compress(corpus[i: i + N], 3)) for i in range(0, len(corpus), N))
-    gbps = len(corpus) / secs / 1e9
-    print(f"path: {len(corpus)} B -> {len(out)} B, ratio {len(corpus) / len(out):.4f}, "
-          f"size vs zlib-3 per 128 KiB block {len(out) / zsize:.4f}; first 4 members "
-          f"equal the CPU run's; {secs:.3f} s = {gbps:.4f} GB/s end to end on {smi}",
-          flush=True)
+    # each row's launches on the path that runs its function: level 3 for
+    # K1, K2, K6, K10 (K3's function, lags > 2 at <= 3 words, is on no
+    # path); level 6 for K4, K5, K7, K8, K9
+    rows["K3"]["launches"] = 0
+    for kid, kernel, path in (
+        ("K1", lz_cuda.BUILD_KEYS, l3), ("K2", lz_cuda.NEIGHBOR, l3),
+        ("K6", lz_cuda.MATCH_TAIL, l3), ("K10", pack_cuda.PACK_PRESCAN, l3),
+        ("K4", lz_cuda.LCP_LAGS, l6), ("K5", lz_cuda.HASH_MERGE, l6),
+        ("K7", lz_cuda.BUILD_SUFFIX_KEYS, l6), ("K8", lz_cuda.SUFFIX_MERGE, l6),
+        ("K9", lz_cuda.MATCH_TAIL2, l6),
+    ):
+        rows[kid]["launches"] = path[kernel.name]
 
     # ---- 5. result
-    print(json.dumps({"kernels": rows}))
+    order = ["K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10"]
+    print(json.dumps({"kernels": [rows[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))
     return 0

@@ -19,23 +19,15 @@
 // Design: one CTA of 1024 threads per row walks the row in tiles. Step 2 is
 // a suffix-min scan of the next non-repeat index, done tile by tile from
 // the row's end with the minimum carried across tiles — linear in N (a
-// thread counting forward would be quadratic on a long run). The rounds of
+// thread counting forward would be quadratic on a long run; the walk and
+// the per-position steps are in match_tail.cuh, shared with K9). The rounds of
 // step 3 ping-pong between two row buffers in device memory with
 // __syncthreads() between rounds. Only B CTAs run (64 at the flagship
 // batch on 132 SMs), which caps the card's use; splitting a row over
 // several CTAs needs a grid-wide barrier per round and is later work.
-#include <climits>
-
-#include "common.cuh"
+#include "match_tail.cuh"
 
 namespace {
-
-constexpr int LEN_MASK = (1 << 30) - 1;
-constexpr int CAPPED_BIT = 1 << 30;
-
-struct MinOp {
-  __device__ int operator()(int a, int b) const { return a < b ? a : b; }
-};
 
 __global__ void __launch_bounds__(SCAN_BLOCK)
 match_tail_kernel(const uint8_t* __restrict__ data,
@@ -48,7 +40,6 @@ match_tail_kernel(const uint8_t* __restrict__ data,
                   int lazy) {
   __shared__ int scratch[SCAN_WARPS];
   const int b = blockIdx.x;
-  const int t = threadIdx.x;
   const uint8_t* d = data + static_cast<int64_t>(b) * n;
   const uint32_t* pk = packed + static_cast<int64_t>(b) * npad;
   const int64_t plane = static_cast<int64_t>(rows) * npad;
@@ -58,54 +49,21 @@ match_tail_kernel(const uint8_t* __restrict__ data,
   const int end = base + lengths[b];
   const int lo = halo_start[b];
 
-  // ---- steps 1-2: tiles from the row's end, thread t at position
-  // ts + 1023 - t, so the CTA scan in thread order runs right to left
-  int next_break = npad;  // first non-repeat index right of the tile
-  for (int ts = npad - SCAN_BLOCK; ts >= 0; ts -= SCAN_BLOCK) {
-    const int j = ts + SCAN_BLOCK - 1 - t;
-    const int cur = j < n ? d[j] : 0;
-    const int prev = (j >= 1 && j - 1 < n) ? d[j - 1] : 0;
-    const bool eq = j >= 1 && cur == prev;
-    int tile_min;
-    const int m = block_inclusive_scan(eq ? INT_MAX : j, MinOp(), scratch, tile_min);
-    const int run = (m < next_break ? m : next_break) - j;
-    next_break = tile_min < next_break ? tile_min : next_break;
-
-    const uint32_t p = pk[j];
-    int len = static_cast<int>((p >> 17) & 0x1F);
-    int dj = static_cast<int>(p & 0x1FFFF);
-    bool capped = (p >> 22) == 1;
-    const int l3 = (j - 1 >= lo) ? run : 0;
-    if (l3 > len || (l3 == len && dj > 1)) {
-      len = l3;
-      dj = 1;
-      capped = false;
-    }
-    lc0[j] = len | (capped ? CAPPED_BIT : 0);
-    dist[j] = dj;
-  }
+  // ---- steps 1-2: unpack, and merge the distance-1 run
+  tail::run_walk(d, n, npad, scratch, [&](int j, int run) {
+    tail::Cand c = tail::unpack(pk[j]);
+    tail::merge_run(c, run, j, lo);
+    lc0[j] = tail::len_capped(c);
+    dist[j] = c.dist;
+  });
   __syncthreads();
 
   // ---- step 3: extension doubling, one full-row round per cap
   int* src = lc0;
   int* dst = lc1;
   for (int cap = payload_bytes; cap < max_match; cap *= 2) {
-    for (int j = t; j < npad; j += SCAN_BLOCK) {
-      const int a = src[j];
-      int len = a & LEN_MASK;
-      bool capped = (a & CAPPED_BIT) != 0;
-      if (capped) {
-        const int k = j + cap;
-        const bool chain = k < npad && dist[k] == dist[j];
-        if (chain) {
-          const int an = src[k];
-          len = cap + (an & LEN_MASK);
-          capped = (an & CAPPED_BIT) != 0;
-        } else {
-          capped = false;
-        }
-      }
-      dst[j] = len | (capped ? CAPPED_BIT : 0);
+    for (int j = threadIdx.x; j < npad; j += SCAN_BLOCK) {
+      dst[j] = tail::extend_step(src, dist, j, npad, cap);
     }
     __syncthreads();
     int* tmp = src;
@@ -114,29 +72,15 @@ match_tail_kernel(const uint8_t* __restrict__ data,
   }
 
   // ---- step 4: clamp and heuristics (into dst)
-  for (int j = t; j < npad; j += SCAN_BLOCK) {
-    int len = src[j] & LEN_MASK;
-    const int limit = end - j < max_match ? end - j : max_match;
-    len = len < limit ? len : limit;
-    if (len < min_emit) len = 0;
-    if (len == 3 && dist[j] > 4096) len = 0;
-    if (j < base || j >= end) len = 0;
-    dst[j] = len;
+  for (int j = threadIdx.x; j < npad; j += SCAN_BLOCK) {
+    dst[j] = tail::clamp_len(src[j] & tail::LEN_MASK, dist[j], j, base, end,
+                             max_match, min_emit);
   }
   __syncthreads();
 
   // ---- step 5: lazy demotion, then the [0, n) outputs
-  int32_t* lrow = ln_out + static_cast<int64_t>(b) * n;
-  int32_t* drow = dist_out + static_cast<int64_t>(b) * n;
-  for (int j = t; j < n; j += SCAN_BLOCK) {
-    int len = dst[j];
-    if (lazy) {
-      const int next = j + 1 < npad ? dst[j + 1] : 0;
-      if (len > 0 && len < 32 && next > len) len = 0;
-    }
-    lrow[j] = len;
-    drow[j] = dist[j];
-  }
+  tail::write_row(dst, dist, n, npad, lazy, ln_out + static_cast<int64_t>(b) * n,
+                  dist_out + static_cast<int64_t>(b) * n);
 }
 
 }  // namespace

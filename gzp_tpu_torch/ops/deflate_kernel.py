@@ -6,10 +6,12 @@ formats (Mgzip, BGZF): every block becomes a standalone gzip member that
 leaves the device fully framed (header with the per-format size field,
 dynamic-or-fixed Huffman payload, CRC32 + ISIZE footer). The stages are
 
-1. match (:func:`match_stage`): LZ77 candidates, CUDA kernels K1, K2, K6;
+1. match (:func:`match_stage`): LZ77 candidates; the hash matcher
+   (levels 0-5: CUDA kernels K1, K2, K6) or the suffix matcher (levels
+   6-9: K7, K4, K8, K1, K5, K9);
 2. parse (:func:`parse_stage`): the greedy parse as a δ-state scan;
-3. emit (:func:`block_entries`): symbols, Huffman tables, per-position
-   (value, width) bit entries;
+3. emit (:func:`block_entries`): symbols, Huffman tables (one set per
+   sub-block), per-position (value, width) bit entries;
 4. pack: K10 plus a scatter of finished words;
 5. finish (:func:`emit_stage`): CRC32, framing, :func:`compact_outputs`.
 
@@ -33,7 +35,7 @@ from gzp_tpu_torch.constants import (
 )
 from gzp_tpu_torch.ops import huffman, lz
 from gzp_tpu_torch.ops.checksum import crc32_device
-from gzp_tpu_torch.ops.lz_cuda import best_matches_cuda
+from gzp_tpu_torch.ops.lz_cuda import best_matches_cuda, best_matches_suffix_cuda
 from gzp_tpu_torch.ops.pack_cuda import pack_entries_sortscan_cuda
 
 I64 = torch.int64
@@ -71,8 +73,8 @@ class DeflateEncodeConfig:
     lazy: bool = True  # zlib-style lazy matching
     payload_words: int = 3  # context words carried through the hash sort
     lags: int = 2  # sorted-neighbour candidates examined
-    # candidate discovery: 'hash' (levels <= 5, ported) or 'suffix'
-    # (levels >= 6, the content-sorted matcher not ported yet)
+    # candidate discovery: 'hash' (levels <= 5) or 'suffix' (levels >= 6,
+    # content-sorted neighbours plus a shallow hash pass)
     matcher: str = "hash"
     suffix_keys: int = 0  # suffix matcher: context words used as sort keys
     subblocks: int = 1  # deflate blocks (own Huffman tables) per gzp block
@@ -240,42 +242,61 @@ def emit_token_entries(marked, prev_match, sym, leb, lextra, dsym_s, deb_s, dext
 
 def match_stage(cfg: DeflateEncodeConfig, data_u8: torch.Tensor, lengths: torch.Tensor):
     """Stage 1: LZ77 match finding -> (match_len, match_dist) [B, N] int32."""
-    return best_matches_cuda(
-        data_u8, lengths, max_dist=MAX_DIST, max_match=MAX_MATCH, min_emit=MIN_MATCH,
-        lazy=cfg.lazy, payload_words=cfg.payload_words, lags=cfg.lags,
-    )
+    kw = dict(max_dist=MAX_DIST, max_match=MAX_MATCH, min_emit=MIN_MATCH, lazy=cfg.lazy,
+              payload_words=cfg.payload_words, lags=cfg.lags)
+    if cfg.matcher == "suffix":
+        return best_matches_suffix_cuda(data_u8, lengths, suffix_keys=cfg.suffix_keys, **kw)
+    if cfg.matcher == "hash":
+        return best_matches_cuda(data_u8, lengths, **kw)
+    raise ValueError(f"matcher={cfg.matcher!r}")
 
 
 def parse_stage(cfg: DeflateEncodeConfig, match_len: torch.Tensor, lengths: torch.Tensor):
-    """Stage 2: greedy parse of the match field into token starts."""
+    """Stage 2: greedy parse of the match field into token starts. With
+    sub-blocks, no match starts on the last position before a sub-block
+    boundary: its distance half (stashed at i+1) would land after the next
+    sub-block's end-of-block symbol and header."""
+    if cfg.subblocks > 1:
+        ns = cfg.block_len // cfg.subblocks
+        match_len = match_len.clone()
+        match_len[:, [(s + 1) * ns - 1 for s in range(cfg.subblocks - 1)]] = 0
     return lz.parse_marks_scan(match_len, lengths, min_emit=MIN_MATCH)
 
 
 def block_entries(cfg: DeflateEncodeConfig, data_u8, marked, l, match_dist):
-    """Stage 3: per block, the deflate bit entries in stream order — the
-    block header (with the dynamic table description), one entry per
-    position and the end-of-block symbol. Returns (bits, nbits) [B, E]
-    int32 (bits < 2**nbits, widths in [0, 31])."""
+    """Stage 3: per block, the deflate bit entries in stream order. Each of
+    the ``cfg.subblocks`` deflate blocks of a block (equal slices of it)
+    has its own Huffman tables: its header (with the dynamic table
+    description), one entry per position and its end-of-block symbol;
+    only the last is final. Returns (bits, nbits) [B, E] int32 (bits <
+    2**nbits, widths in [0, 31])."""
+    b, n = data_u8.shape
+    s_count = cfg.subblocks
     sym, leb, lextra, dsym, deb, dextra, is_match = compute_symbols(
         data_u8, marked, l, match_dist)
 
-    def stash(x, fill=0):  # a match's distance half sits at i+1
+    def stash(x, fill=0):  # a match's distance half sits at i+1, across sub-blocks
         return torch.cat([torch.full_like(x[:, :1], fill), x[:, :-1]], dim=1)
 
-    prev_match = stash(is_match, False)
-    dsym_s, deb_s, dextra_s = stash(dsym), stash(deb), stash(dextra)
+    def rows(x):  # [B, N] -> [B * S, N / S], one row per sub-block
+        return x.reshape(b * s_count, n // s_count)
+
+    prev_match = rows(stash(is_match, False))
+    dsym_s, deb_s, dextra_s = rows(stash(dsym)), rows(stash(deb)), rows(stash(dextra))
+    marked, sym, leb, lextra = rows(marked), rows(sym), rows(leb), rows(lextra)
     lit_freq, dist_freq = huffman.position_histograms(sym, dsym_s, marked, prev_match)
     lit_codes, lit_lens, dist_codes, dist_lens, use_dyn, dlit_lens, ddist_lens = (
         huffman.choose_tables(lit_freq, dist_freq))
-    final = torch.ones_like(use_dyn)  # every member's one block is final
+    # every member ends with its last sub-block
+    final = (torch.arange(b * s_count, device=data_u8.device) % s_count) == s_count - 1
     hfield_bits, hfield_n = huffman.dynamic_header_fields_rle(
         dlit_lens, ddist_lens, final, use_dyn)
     bits, nbits = emit_token_entries(
         marked, prev_match, sym, leb, lextra, dsym_s, deb_s, dextra_s,
         lit_codes, lit_lens, dist_codes, dist_lens,
     )
-    all_bits = torch.cat([hfield_bits, bits], dim=1).to(torch.int32)
-    all_n = torch.cat([hfield_n, nbits], dim=1).to(torch.int32)
+    all_bits = torch.cat([hfield_bits, bits], dim=1).to(torch.int32).reshape(b, -1)
+    all_n = torch.cat([hfield_n, nbits], dim=1).to(torch.int32).reshape(b, -1)
     return all_bits, all_n
 
 
@@ -339,21 +360,17 @@ def get_encoder(cfg: DeflateEncodeConfig, compact: bool = False):
     ``compact=True`` also ``flat``, see :func:`compact_outputs`). Runs on
     the device of its inputs.
 
-    Implemented: the member modes (Mgzip, BGZF) with the hash matcher
-    (levels 0-5). Stream mode and the suffix matcher raise
-    ``NotImplementedError``.
+    Implemented: the member modes (Mgzip, BGZF) at every level. Stream
+    mode raises ``NotImplementedError``.
     """
     if cfg.mode == "stream":
         raise NotImplementedError(
             "stream mode (Gzip/Zlib/RawDeflate) is not ported yet: ROADMAP.md queue A, "
             "'Stream mode'")
-    if cfg.matcher != "hash":
-        raise NotImplementedError(
-            f"level {cfg.level} uses the suffix matcher (kernels K4, K5, K7-K9), "
-            "not ported yet: ROADMAP.md queues A and B, 'Levels 6-9'")
-    if cfg.checksum not in ("crc32", "none") or cfg.dict_size or cfg.subblocks != 1:
+    if cfg.checksum not in ("crc32", "none") or cfg.dict_size or cfg.block_len % cfg.subblocks:
         raise NotImplementedError(f"member mode with checksum={cfg.checksum!r}, "
-                                  f"dict_size={cfg.dict_size}, subblocks={cfg.subblocks}")
+                                  f"dict_size={cfg.dict_size}, subblocks={cfg.subblocks} "
+                                  f"of block_len={cfg.block_len}")
 
     def encode(data_u8: torch.Tensor, lengths: torch.Tensor) -> dict:
         match_len, match_dist = match_stage(cfg, data_u8, lengths)

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface,
 ``gzp_tpu_torch/_build/<name>-<digest>.so``, at first use, and loaded with
-``ctypes``. The digest covers the sources and the flags, so an edited
-source builds anew. The first launch of any kernel builds every library
-still missing, one ``nvcc`` process each, all started together.
+``ctypes``. The digest covers the source, every ``csrc/*.cuh`` header and
+the flags, so an edited source or header builds anew. The first launch of
+any kernel builds every library still missing, one ``nvcc`` process each,
+all started together.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :meth:`CudaKernel.launch` raises if that is not 0
@@ -70,8 +71,11 @@ class CudaKernel:
 
     @property
     def library(self) -> Path:
+        # every header, not only the ones this source includes: an edit to
+        # a shared header must rebuild each kernel that uses it
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for f in (CSRC / self.source, CSRC / "common.cuh"):
+        for f in (CSRC / self.source, *sorted(CSRC.glob("*.cuh"))):
+            h.update(f.name.encode())
             h.update(f.read_bytes())
         return BUILD_DIR / f"{self.name}-{h.hexdigest()[:12]}.so"
 
@@ -100,6 +104,11 @@ class CudaKernel:
             lib.gzp_cuda_error_string.argtypes = [ctypes.c_int]
             lib.gzp_cuda_error_string.restype = ctypes.c_char_p
             self._lib = lib
+
+
+def registered() -> list[CudaKernel]:
+    """Every kernel library of the package, in the order they were defined."""
+    return list(_REGISTRY)
 
 
 def build(kernels: list[CudaKernel] | None = None, *, force: bool = False,

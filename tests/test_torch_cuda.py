@@ -1,5 +1,6 @@
 """Each CUDA kernel against its plain PyTorch version, on the card, at the
-main path's full width (64 blocks of 128 KiB, level 3).
+main paths' full width (64 blocks of 128 KiB; level 3's config for K1, K2,
+K6 and K10, level 6's for K4, K5, K7, K8 and K9).
 
 Marked ``cuda``; without a CUDA device every test skips (decided in the
 fixture, never at import). Run on the card with ``python -m pytest -m
@@ -87,13 +88,75 @@ def test_pack_prescan_kernel(stages):
     _same(pack_cuda.pack_prescan_cuda(*args), pack_cuda.pack_prescan_plain(*args))
 
 
-def test_members_equal_cpu_run(stages):
+@pytest.mark.parametrize("level", [3, 6])
+def test_members_equal_cpu_run(stages, level):
     blob = stages["data"][[0, 1, 2, 3]].cpu().numpy().tobytes()
     outs = []
     for device in ("cuda", "cpu"):
         buf = io.BytesIO()
-        w = ZBuilder(Mgzip).num_threads(4).device(device).from_writer(buf)
+        w = ZBuilder(Mgzip).num_threads(4).compression_level(level).device(device).from_writer(buf)
         w.write(blob)
         w.finish()
         outs.append(buf.getvalue())
     assert outs[0] == outs[1]
+
+
+PW6 = 7  # level 6's context words
+
+
+@pytest.fixture(scope="module")
+def stages6(stages):
+    """The suffix matcher's intermediate tensors at level 6's config."""
+    data, halo = stages["data"], stages["halo"]
+    keys, pos = lz_cuda.build_suffix_keys_cuda(data, payload_words=PW6)
+    order = lz_cuda.suffix_order(keys, pos, 5)
+    skeys = torch.gather(keys, 2, order.expand(PW6, -1, -1))
+    sp = torch.gather(pos, 1, order)
+    adj = lz_cuda.lcp_lags_cuda(skeys, 1, big_endian=True)[0]
+    packed_s = lz_cuda.suffix_merge_cuda(sp, adj, halo, lags=16, max_dist=32768,
+                                         payload_bytes=4 * PW6)
+    key, pays = lz_cuda.build_keys_cuda(data, pos_bits=_pos_bits(N), payload_words=PW6)
+    sk, horder = torch.sort(key.to(torch.int64) & 0xFFFFFFFF, dim=1)
+    spays = torch.gather(pays, 2, horder.expand(PW6, -1, -1))
+    lcps = lz_cuda.lcp_lags_cuda(spays, 2, big_endian=False)
+    sp_h, packed_h = lz_cuda.hash_merge_cuda(sk, lcps, halo, pos_bits=_pos_bits(N),
+                                             max_dist=32768, payload_bytes=4 * PW6)
+    return dict(skeys=skeys, sp=sp, adj=adj, sk=sk, spays=spays, lcps=lcps,
+                packed_s_pos=lz_cuda.restore_order(sp, packed_s),
+                packed_h_pos=lz_cuda.restore_order(sp_h, packed_h))
+
+
+def test_build_suffix_keys_kernel(stages):
+    _same(lz_cuda.build_suffix_keys_cuda(stages["data"], payload_words=PW6),
+          lz_cuda.build_suffix_keys_plain(stages["data"], payload_words=PW6))
+
+
+@pytest.mark.parametrize("big_endian", [True, False], ids=["be-suffix", "le-hash"])
+def test_lcp_lags_kernel(stages6, big_endian):
+    words, lags = (stages6["skeys"], 1) if big_endian else (stages6["spays"], 2)
+    _same([lz_cuda.lcp_lags_cuda(words, lags, big_endian=big_endian)],
+          [lz_cuda.lcp_lags_plain(words, lags, big_endian=big_endian)])
+
+
+@pytest.mark.parametrize("lags", [16, 24])
+def test_suffix_merge_kernel(stages, stages6, lags):
+    args = (stages6["sp"], stages6["adj"], stages["halo"])
+    kw = dict(lags=lags, max_dist=32768, payload_bytes=4 * PW6)
+    _same([lz_cuda.suffix_merge_cuda(*args, **kw)], [lz_cuda.suffix_merge_plain(*args, **kw)])
+
+
+def test_hash_merge_kernel(stages, stages6):
+    args = (stages6["sk"], stages6["lcps"], stages["halo"])
+    kw = dict(pos_bits=_pos_bits(N), max_dist=32768, payload_bytes=4 * PW6)
+    got = lz_cuda.hash_merge_cuda(*args, **kw)
+    _same(got, lz_cuda.hash_merge_plain(*args, **kw))
+    # K4 + K5 compute K2's function at 7 context words
+    _same(got, lz_cuda.neighbor_plain(stages6["sk"], stages6["spays"], stages["halo"],
+                                      pos_bits=_pos_bits(N), lags=2, max_dist=32768))
+
+
+def test_match_tail2_kernel(stages, stages6):
+    args = (stages["data"], stages6["packed_h_pos"], stages6["packed_s_pos"],
+            stages["lengths"], stages["halo"])
+    kw = dict(base=0, payload_bytes=4 * PW6, max_match=258, min_emit=3, lazy=True)
+    _same(lz_cuda.match_tail2_cuda(*args, **kw), lz_cuda.match_tail2_plain(*args, **kw))

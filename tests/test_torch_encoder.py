@@ -109,8 +109,12 @@ def _text(n, seed=0):
     return out[:n]
 
 
-@pytest.mark.parametrize("level,mode", [(3, "mgzip"), (3, "bgzf"), (1, "mgzip"), (1, "bgzf")])
-def test_encoder_equals_reference(level, mode):
+@pytest.mark.parametrize("level,mode,subblocks", [
+    (3, "mgzip", 0), (3, "bgzf", 0), (1, "mgzip", 0), (1, "bgzf", 0),
+    (6, "mgzip", 0), (6, "bgzf", 0), (9, "mgzip", 0),
+    (6, "mgzip", 4),  # per-sub-block tables, as test_subblock_tables_oracle
+])
+def test_encoder_equals_reference(level, mode, subblocks):
     n = 16384
     data = np.frombuffer(_text(3 * n, level), np.uint8).reshape(3, n).copy()
     lengths = np.array([n, n - 11, 5000], np.int32)
@@ -118,9 +122,12 @@ def test_encoder_equals_reference(level, mode):
     for i, ln in enumerate(lengths):
         data[i, ln:] = 0
     jcfg = jdk.DeflateEncodeConfig.for_level(n, mode, "none", level)
+    if subblocks:
+        jcfg = dataclasses.replace(jcfg, subblocks=subblocks)
     rj = jdk.get_encoder(jcfg, compact=True)(
         jnp.asarray(data), jnp.asarray(lengths), jnp.zeros((3,), bool))
     tcfg = tdk.config_from_reference(dataclasses.asdict(jcfg))
+    assert tcfg.matcher == ("suffix" if level >= 6 else "hash")
     rt = tdk.get_encoder(tcfg, compact=True)(torch.from_numpy(data), torch.from_numpy(lengths))
     for k in ("out", "out_len", "check", "flat"):
         _eq(rj[k], rt[k])
@@ -137,9 +144,10 @@ def test_config_carried_over(level):
     assert tcfg.out_bytes == jcfg.out_bytes
     assert (tdk._member_header_template("mgzip", level)
             == jdk._member_header_template("mgzip", level)).all()
+    assert (tcfg.matcher, tcfg.subblocks) == (jcfg.matcher, jcfg.subblocks)
     if level >= 6:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdk.get_encoder(tcfg)
+        assert (tcfg.matcher, tcfg.subblocks) == ("suffix", 2)
+        assert callable(tdk.get_encoder(tcfg))
 
 
 def test_config_rejects_other_formulations():

@@ -88,6 +88,16 @@ def test_bgzf_default_block_identical_to_reference():
     assert ours == _compress(gzp_tpu, "Bgzf", 2, None, data)
 
 
+def test_level6_stream_identical_to_reference():
+    """Level 6 (the suffix matcher) through ZBuilder(Mgzip): two batches of
+    two blocks, the second with a ragged tail."""
+    data = _text(3 * BS + 7777, 8)
+    ours = _compress(gzp_tpu_torch, "Mgzip", 2, BS, data, level=6)
+    assert gzip.decompress(ours) == data
+    assert ours == _compress(gzp_tpu, "Mgzip", 2, BS, data, level=6)
+    assert len(ours) < len(_compress(gzp_tpu_torch, "Mgzip", 2, BS, data, level=3))
+
+
 def test_writes_in_pieces_and_flush():
     data = _text(5 * BS + 123, 6)
     buf = io.BytesIO()

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Trace gzp_tpu_torch's main path on one CUDA card with torch.profiler.
 
-    python3 tools/trace_main_path.py [--batches 8] [--out chiprun_out/trace.json]
+    python3 tools/trace_main_path.py [--level 3] [--batches 8] [--out chiprun_out/trace.json]
 
 Compresses ``batches`` × 64 blocks of 128 KiB of bench text through
-``ZBuilder(Mgzip).num_threads(64).compression_level(3)`` on ``cuda:0``
+``ZBuilder(Mgzip).num_threads(64).compression_level(level)`` on ``cuda:0``
 (after one warm-up batch) under ``torch.profiler``, then prints one JSON
 line: wall time, the device's busy and idle share of it (union of kernel,
 copy and memset intervals in the trace), device operations per batch,
@@ -29,6 +29,7 @@ B, N = 64, 131072
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--level", type=int, default=3)
     ap.add_argument("--batches", type=int, default=8)
     ap.add_argument("--out", default="chiprun_out/trace.json")
     args = ap.parse_args()
@@ -43,7 +44,7 @@ def main() -> int:
 
     def compress(blob: bytes) -> bytes:
         buf = io.BytesIO()
-        w = ZBuilder(Mgzip).num_threads(B).compression_level(3).from_writer(buf)
+        w = ZBuilder(Mgzip).num_threads(B).compression_level(args.level).from_writer(buf)
         w.write(blob)
         w.finish()
         return buf.getvalue()
@@ -82,6 +83,7 @@ def main() -> int:
     kernels = [e for e in device if e["cat"] == "kernel"]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
+        "level": args.level,
         "batches": args.batches,
         "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy / 1e3,
