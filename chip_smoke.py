@@ -39,9 +39,12 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-# Hopper issues 64 INT32 lanes per SM per clock, half its 128 FP32 lanes:
-# half the data sheet's 67 TFLOP/s float32 rate outside the tensor cores
-INT32_OPS_PER_S = 33.5e12
+# Hopper's integer ALU pipe: 64 INT32 lanes per SM per clock (half its 128
+# FP32 lanes), 132 SMs at the 1.98 GHz boost clock
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# K8's lag loop, unrolled by 4 (nvcc 12.9, sm_90a; tools/sass_loops.py):
+# 81 integer-ALU instructions (ISETP, SEL, VIMNMX) per 4 lags per slot
+K8_ALU_OPS_PER_LAG = 81 / 4
 B, N = 64, 131072
 PATH_BYTES = 256 << 20
 SRC = "gzp_tpu_torch/csrc/"
@@ -246,13 +249,13 @@ def level6_kernels(data, lengths, halo):
     packed_s, rows["K8"] = hold(
         "K8 suffix_merge lags=16", lz_cuda.suffix_merge_cuda, lz_cuda.suffix_merge_plain,
         (sp, adj, halo), dict(lags=lags, max_dist=32768, payload_bytes=4 * pw),
-        nbytes=merge_bytes, nops=slots * lags * 30,
+        nbytes=merge_bytes, nops=int(slots * lags * K8_ALU_OPS_PER_LAG),
         source=SRC + "suffix_merge.cu", replaces=PALLAS + "697",
     )
     hold("K8 suffix_merge lags=24 (level 9)", lz_cuda.suffix_merge_cuda,
          lz_cuda.suffix_merge_plain, (sp, adj, halo),
          dict(lags=24, max_dist=32768, payload_bytes=4 * pw),
-         nbytes=merge_bytes, nops=slots * 24 * 30,
+         nbytes=merge_bytes, nops=int(slots * 24 * K8_ALU_OPS_PER_LAG),
          source=SRC + "suffix_merge.cu", replaces=PALLAS + "697")
     packed_s_pos = lz_cuda.restore_order(sp, packed_s)
 
@@ -332,13 +335,13 @@ def drive(level, corpus, kernels, smi):
 
     compress(corpus[: B * N])  # warm-up: allocator, pinned buffers
     torch.cuda.synchronize()
-    for k in cuda_lib.registered():
+    for k in cuda_lib.counts():
         k.launches = 0
     t0 = time.perf_counter()
     out = compress(corpus)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in cuda_lib.registered()}
+    launches = {k.name: k.launches for k in cuda_lib.counts()}
     print(f"path level {level}: launches {json.dumps(launches)}", flush=True)
     missing = [k.name for k in kernels if launches[k.name] <= 0]
     if missing:
@@ -412,17 +415,20 @@ def main() -> int:
                            lz_cuda.MATCH_TAIL2, pack_cuda.PACK_PRESCAN], smi)
 
     # each row's launches on the path that runs its function: level 3 for
-    # K1, K2, K6, K10 (K3's function, lags > 2 at <= 3 words, is on no
-    # path); level 6 for K4, K5, K7, K8, K9
-    rows["K3"]["launches"] = 0
+    # K1, K2, K6, K10; level 6 for K4, K5, K7, K8, K9. K3's function is
+    # neighbor.cu at lags > 2 (counted apart, and taken off K2's count):
+    # both paths' runs, since neither level runs it
+    loop = lz_cuda.NEIGHBOR_LOOP.name
     for kid, kernel, path in (
-        ("K1", lz_cuda.BUILD_KEYS, l3), ("K2", lz_cuda.NEIGHBOR, l3),
-        ("K6", lz_cuda.MATCH_TAIL, l3), ("K10", pack_cuda.PACK_PRESCAN, l3),
+        ("K1", lz_cuda.BUILD_KEYS, l3), ("K6", lz_cuda.MATCH_TAIL, l3),
+        ("K10", pack_cuda.PACK_PRESCAN, l3),
         ("K4", lz_cuda.LCP_LAGS, l6), ("K5", lz_cuda.HASH_MERGE, l6),
         ("K7", lz_cuda.BUILD_SUFFIX_KEYS, l6), ("K8", lz_cuda.SUFFIX_MERGE, l6),
         ("K9", lz_cuda.MATCH_TAIL2, l6),
     ):
         rows[kid]["launches"] = path[kernel.name]
+    rows["K2"]["launches"] = l3[lz_cuda.NEIGHBOR.name] - l3[loop]
+    rows["K3"]["launches"] = l3[loop] + l6[loop]
 
     # ---- 5. result
     order = ["K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10"]

@@ -15,9 +15,11 @@
 // Output: packed = dist | len << 17 | capped << 22, dist 0 where len is 0.
 //
 // Bound on the card: operations. Per slot it reads two words and writes
-// one, but does about two dozen integer operations per lag (two running
-// minima, two candidates' validity and keep tests): ~0.1 ms at lags = 16
-// on 64 x 131072 slots against 0.03 ms of memory traffic. Design: one
+// one, but its lag loop issues about 20 integer-ALU instructions per lag
+// (two running minima, two candidates' validity and keep tests; 81 per 4
+// unrolled lags in the SASS, tools/sass_loops.py): on an H100 SXM's ALU
+// pipe (64 lanes per SM per clock) ~0.16 ms at lags = 16 on 64 x 131072
+// slots against 0.03 ms of memory traffic at 3.35 TB/s. Design: one
 // thread per sorted slot; a CTA stages its tile of sp and adj in shared
 // memory with a halo of HALO slots on each side (lags < HALO), so the
 // 2 * lags neighbour reads per slot are shared-memory loads, and each

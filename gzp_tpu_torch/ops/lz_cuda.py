@@ -37,7 +37,7 @@ import torch
 
 from gzp_tpu_torch.ops.lz import HASH_MUL, _pos_bits
 from gzp_tpu_torch.runtime.cuda_lib import (
-    CudaKernel, check_cuda, i32, on_cpu, ptr, stream_of,
+    CudaKernel, LaunchCount, check_cuda, i32, on_cpu, ptr, stream_of,
 )
 
 LANES = 128
@@ -50,6 +50,8 @@ NEIGHBOR = CudaKernel(
     "neighbor.cu", "gzp_neighbor",
     [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32],
 )
+# K2's kernel at lags > 2 computes the TPU's K3 (`_neighbor_loop_kernel`)
+NEIGHBOR_LOOP = LaunchCount("neighbor_loop")
 MATCH_TAIL = CudaKernel(
     "match_tail.cu", "gzp_match_tail",
     [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32],
@@ -235,6 +237,8 @@ def neighbor_cuda(sk, pays, halo_start, *, pos_bits: int, lags: int, max_dist: i
         ptr(sp.data_ptr()), ptr(packed.data_ptr()),
         b, npad, pos_bits, pw, lags, max_dist, stream_of(sk),
     )
+    if lags > 2:
+        NEIGHBOR_LOOP.launches += 1
     return sp, packed
 
 

@@ -35,6 +35,7 @@ NVCC_FLAGS = (
 )
 
 _REGISTRY: list["CudaKernel"] = []
+_COUNTS: list["LaunchCount"] = []
 _LOCK = threading.Lock()
 
 ptr = ctypes.c_void_p
@@ -106,9 +107,26 @@ class CudaKernel:
             self._lib = lib
 
 
+class LaunchCount:
+    """Launches of one library's kernel at some of its arguments: where one
+    kernel computes several Pallas kernels' functions, its wrapper adds one
+    here next to the library's launch for the function that this counts."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+        _COUNTS.append(self)
+
+
 def registered() -> list[CudaKernel]:
     """Every kernel library of the package, in the order they were defined."""
     return list(_REGISTRY)
+
+
+def counts() -> list[CudaKernel | LaunchCount]:
+    """Every launch count of the package: each library's, then each
+    :class:`LaunchCount`."""
+    return [*_REGISTRY, *_COUNTS]
 
 
 def build(kernels: list[CudaKernel] | None = None, *, force: bool = False,

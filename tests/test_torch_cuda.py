@@ -74,7 +74,12 @@ def test_build_keys_kernel(stages):
 def test_neighbor_kernel(stages, lags):
     args = (stages["sk"], stages["spays"], stages["halo"])
     kw = dict(pos_bits=_pos_bits(N), lags=lags, max_dist=32768)
-    _same(lz_cuda.neighbor_cuda(*args, **kw), lz_cuda.neighbor_plain(*args, **kw))
+    before = (lz_cuda.NEIGHBOR.launches, lz_cuda.NEIGHBOR_LOOP.launches)
+    got = lz_cuda.neighbor_cuda(*args, **kw)
+    # one launch of neighbor.cu, counted as K3's function only at lags > 2
+    assert (lz_cuda.NEIGHBOR.launches - before[0],
+            lz_cuda.NEIGHBOR_LOOP.launches - before[1]) == (1, int(lags > 2))
+    _same(got, lz_cuda.neighbor_plain(*args, **kw))
 
 
 def test_match_tail_kernel(stages):
