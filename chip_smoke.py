@@ -14,7 +14,10 @@ Phases (any failure raises and exits non-zero; no result line then):
              every output) and timed with CUDA events beside its bound:
              K1, K2 (and K3's function), K6 and K10 at level 3's config,
              then K7, K4, K8, K1, K5 and K9 at level 6's (K8 also at
-             level 9's 24 lags), with a stage split per level;
+             level 9's 24 lags), with a stage split per level; K6 also
+             at level 1's 8 context bytes (its widest window), and K6
+             and K9 on rows built for their tile and window edges
+             (``tail_edge_batch``), held but not timed;
 4. paths   — 256 MiB of text through ``ZBuilder(Mgzip)`` on the card at
              level 3, then at level 6; for each, gzip must restore it,
              every kernel of the path must have been launched, the first
@@ -130,6 +133,41 @@ def hold(name, kernel, plain, args, kwargs, nbytes, nops, source, replaces):
     return got, row
 
 
+def check(name, kernel, plain, args, kwargs):
+    """Compare kernel and plain version on the same card inputs, untimed."""
+    err = max_abs_err(kernel(*args, **kwargs), plain(*args, **kwargs))
+    print(f"check {name}: max_abs_err {err}", flush=True)
+    if err != 0:
+        raise AssertionError(f"{name} disagrees with its plain version: max_abs_err {err}")
+
+
+def window(fields, payload_bytes):
+    """The tile, window and shared memory of K6 (1 field) or K9 (2)."""
+    from gzp_tpu_torch.ops import lz_cuda
+
+    t, e, r = lz_cuda.tail_window(payload_bytes, 258)
+    npad = lz_cuda.padded_len(N)
+    print(f"  window: T {t}, E {e}, R {r}; grid ({-(-npad // t)}, {B}); dynamic shared "
+          f"memory {lz_cuda.tail_smem_bytes(fields, t, e, r)} B per CTA", flush=True)
+
+
+def tail_edges(dev):
+    """K6 at 8, 12 and 28 context bytes and K9 at 28 on the edge rows, at
+    an n that is not a multiple of the tile."""
+    from gzp_tpu_torch.ops import lz_cuda
+    from gzp_tpu_torch.utils.testing import KINDS, tail_edge_batch
+
+    for fields, pb in ((1, 8), (1, 12), (1, 28), (2, 28)):
+        x = tail_edge_batch((KINDS * B)[:B], N - 1000, payload_bytes=pb, seed=pb)
+        x = {k: torch.from_numpy(v).to(dev) for k, v in x.items()}
+        planes = [x["packed_hash"], x["packed_suffix"]][:fields]
+        kernel, plain = ((lz_cuda.match_tail_cuda, lz_cuda.match_tail_plain) if fields == 1
+                         else (lz_cuda.match_tail2_cuda, lz_cuda.match_tail2_plain))
+        check(f"{'K6' if fields == 1 else 'K9'} tile edges pb={pb} n={N - 1000}", kernel, plain,
+              (x["data"], *planes, x["lengths"], x["halo_start"]),
+              dict(base=0, payload_bytes=pb, max_match=258, min_emit=3, lazy=pb != 8))
+
+
 def members(blob: bytes) -> list[bytes]:
     """Split an Mgzip stream into members by their BLEN fields."""
     out, pos = [], 0
@@ -182,6 +220,15 @@ def level3_kernels(data, lengths, halo):
         nbytes=B * N + B * npad * 4 + 8 * B + 2 * B * N * 4, nops=B * npad * 90,
         source=SRC + "match_tail.cu", replaces=PALLAS + "472",
     )
+    window(1, 4 * pw)
+    # K6 at level 1's 8 context bytes: its widest window (E = 505)
+    cfg1 = dk.DeflateEncodeConfig.for_level(N, "mgzip", "none", 1)
+    packed1 = lz_cuda.hash_pass(data, halo, payload_words=cfg1.payload_words, lags=cfg1.lags,
+                                max_dist=32768)
+    check("K6 match_tail pw=2 (level 1)", lz_cuda.match_tail_cuda, lz_cuda.match_tail_plain,
+          (data, packed1, lengths, halo), dict(base=0, payload_bytes=4 * cfg1.payload_words,
+                                               max_match=258, min_emit=3, lazy=cfg1.lazy))
+    window(1, 4 * cfg1.payload_words)
     marked, ln = dk.parse_stage(cfg, ml, lengths)
     all_bits, all_n = dk.block_entries(cfg, data, marked, ln, md)
     e = all_bits.shape[1]
@@ -198,6 +245,11 @@ def level3_kernels(data, lengths, halo):
     encode = dk.get_encoder(cfg, compact=True)
     stages = {
         "match": time_ms(lambda: dk.match_stage(cfg, data, lengths), iters=5),
+        "match.hash_pass": time_ms(lambda: lz_cuda.hash_pass(
+            data, halo, payload_words=pw, lags=lags, max_dist=32768), iters=5),
+        "match.tail": time_ms(lambda: lz_cuda.match_tail_cuda(
+            data, packed_pos, lengths, halo, base=0, payload_bytes=4 * pw, max_match=258,
+            min_emit=3, lazy=True), iters=5),
         "parse": time_ms(lambda: dk.parse_stage(cfg, ml, lengths), iters=5),
         "entries": time_ms(lambda: dk.block_entries(cfg, data, marked, ln, md), iters=5),
         "pack": time_ms(lambda: pack_cuda.pack_entries_sortscan_cuda(*words_args), iters=5),
@@ -294,6 +346,7 @@ def level6_kernels(data, lengths, halo):
         nbytes=B * N + 2 * slots * 4 + 8 * B + 2 * B * N * 4, nops=slots * 140,
         source=SRC + "match_tail2.cu", replaces=PALLAS + "797",
     )
+    window(2, 4 * pw)
 
     marked, ln = dk.parse_stage(cfg, ml, lengths)
     all_bits, all_n = dk.block_entries(cfg, data, marked, ln, md)
@@ -402,6 +455,7 @@ def main() -> int:
     halo = torch.zeros((B,), dtype=torch.int32, device=dev)
     rows = level3_kernels(data, lengths, halo)
     rows.update(level6_kernels(data, lengths, halo))
+    tail_edges(dev)
 
     # ---- 4. the main paths: ZBuilder(Mgzip) at levels 3 and 6 on the card
     t0 = time.perf_counter()

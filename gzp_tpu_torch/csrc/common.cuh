@@ -14,8 +14,8 @@ GZP_EXPORT const char* gzp_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The row-scan kernels (K6, K10) run one CTA of SCAN_BLOCK threads per row
-// and walk the row in tiles of SCAN_BLOCK elements.
+// The row-scan kernel K10 runs one CTA of SCAN_BLOCK threads per row and
+// walks the row in tiles of SCAN_BLOCK elements.
 constexpr int SCAN_BLOCK = 1024;
 constexpr int SCAN_WARPS = SCAN_BLOCK / 32;
 
@@ -33,22 +33,28 @@ __device__ __forceinline__ T warp_inclusive_scan(T x, Op op) {
   return x;
 }
 
-// Inclusive scan over a SCAN_BLOCK-thread CTA in threadIdx order.
-// `scratch` is SCAN_WARPS elements of shared memory; `total` receives the
-// aggregate of the whole CTA in every thread. Contains barriers: every
-// thread of the CTA must call it.
-template <typename T, typename Op>
+// Inclusive scan over an NT-thread CTA in threadIdx order (NT a multiple
+// of 32, at most 1024). `scratch` is NT / 32 elements of shared memory;
+// `total` receives the aggregate of the whole CTA in every thread.
+// Contains barriers: every thread of the CTA must call it.
+template <int NT = SCAN_BLOCK, typename T, typename Op>
 __device__ __forceinline__ T block_inclusive_scan(T x, Op op, T* scratch,
                                                   T& total) {
+  constexpr int NW = NT / 32;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   x = warp_inclusive_scan(x, op);
   if (lane == 31) scratch[warp] = x;
   __syncthreads();
-  if (warp == 0) scratch[lane] = warp_inclusive_scan(scratch[lane], op);
+  if (warp == 0) {
+    // lanes at or past NW scan a copy and write nothing back: an inclusive
+    // scan's lane l depends on lanes 0..l only
+    const T s = warp_inclusive_scan(scratch[lane < NW ? lane : 0], op);
+    if (lane < NW) scratch[lane] = s;
+  }
   __syncthreads();
   if (warp > 0) x = op(scratch[warp - 1], x);
-  total = scratch[SCAN_WARPS - 1];
+  total = scratch[NW - 1];
   __syncthreads();  // scratch may be reused by the next call
   return x;
 }

@@ -54,7 +54,7 @@ NEIGHBOR = CudaKernel(
 NEIGHBOR_LOOP = LaunchCount("neighbor_loop")
 MATCH_TAIL = CudaKernel(
     "match_tail.cu", "gzp_match_tail",
-    [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32],
+    [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32],
 )
 BUILD_SUFFIX_KEYS = CudaKernel(
     "build_suffix_keys.cu", "gzp_build_suffix_keys", [ptr, ptr, ptr, i32, i32, i32, i32]
@@ -69,8 +69,10 @@ SUFFIX_MERGE = CudaKernel(
 )
 MATCH_TAIL2 = CudaKernel(
     "match_tail2.cu", "gzp_match_tail2",
-    [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32],
+    [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32],
 )
+# positions per CTA of the tails K6 and K9 (a multiple of 1024)
+TAIL_TILE = 4096
 
 
 def padded_len(n: int) -> int:
@@ -489,6 +491,38 @@ def suffix_neighbor_cuda(skeys, sp, halo_start, *, lags: int, max_dist: int):
 # ---------------------------------------------------------------------------
 
 
+def tail_window(payload_bytes: int, max_match: int, tile: int | None = None):
+    """The tile and window of the tails K6 and K9: ``(T, E, R)``, T =
+    ``tile`` or, by default, ``TAIL_TILE`` as it stands at the call.
+
+    A CTA writes positions [t0, t0 + T). The extension rounds at cap =
+    ``payload_bytes``, 2x, ... < ``max_match`` read position j + cap and
+    lazy demotion reads j + 1, so the tile needs candidates on [t0, t0 + T
+    + E), E = sum of the caps + 1. The distance-1 run is saturated at R =
+    2 * ``max_match`` + 32, which keeps every comparison the tails make
+    (every other length is at most 31 + the sum of the caps < R, and the
+    clamp is at most ``max_match``), so the tile needs bytes on [t0 - 1, t0
+    + T + E + R) (``csrc/match_tail.cuh`` gives the argument)."""
+    tile = TAIL_TILE if tile is None else tile
+    if payload_bytes < 1 or tile <= 0 or tile % 1024:
+        raise ValueError(f"payload_bytes={payload_bytes}, tile={tile}")
+    caps, cap = 0, payload_bytes
+    while cap < max_match:
+        caps += cap
+        cap *= 2
+    return tile, caps + 1, 2 * max_match + 32
+
+
+def tail_smem_bytes(fields: int, tile: int, e: int, r: int) -> int:
+    """Dynamic shared memory per CTA of K6 (``fields`` = 1) or K9 (2) at
+    window (T, E, R), as ``tail::smem_bytes`` in ``csrc/match_tail.cuh``
+    computes it: two int32 planes per field over T + E positions (rounded
+    up to 4), then one more per field, or the staged bytes if larger."""
+    plane = 4 * (-(-(tile + e) // 4) * 4)
+    staged = -(-(16 + tile + e + r) // 16) * 16
+    return 2 * fields * plane + max(fields * plane, staged)
+
+
 def _unpack(packed: torch.Tensor):
     """Candidate word -> (len, dist, capped)."""
     p = packed.to(torch.int64) & M32
@@ -572,15 +606,14 @@ def match_tail_cuda(data_u8, packed_pos, lengths, halo_start, *, base: int,
     check_cuda(packed_pos, torch.int32, (b, npad), "packed_pos")
     check_cuda(lengths, torch.int32, (b,), "lengths")
     check_cuda(halo_start, torch.int32, (b,), "halo_start")
-    work = torch.empty((3, b, npad), dtype=torch.int32, device=data_u8.device)
     ln = torch.empty((b, n), dtype=torch.int32, device=data_u8.device)
     dist = torch.empty((b, n), dtype=torch.int32, device=data_u8.device)
     MATCH_TAIL.launch(
         data_u8.device,
         ptr(data_u8.data_ptr()), ptr(packed_pos.data_ptr()), ptr(lengths.data_ptr()),
-        ptr(halo_start.data_ptr()), ptr(work.data_ptr()), ptr(ln.data_ptr()),
-        ptr(dist.data_ptr()), b, n, npad, base, payload_bytes, max_match,
-        min_emit, int(lazy), stream_of(data_u8),
+        ptr(halo_start.data_ptr()), ptr(ln.data_ptr()), ptr(dist.data_ptr()),
+        b, n, npad, base, payload_bytes, max_match, min_emit, int(lazy),
+        *tail_window(payload_bytes, max_match), stream_of(data_u8),
     )
     return ln, dist
 
@@ -622,13 +655,12 @@ def match_tail2_cuda(data_u8, packed_hash_pos, packed_suffix_pos, lengths, halo_
     check_cuda(packed_suffix_pos, torch.int32, (b, npad), "packed_suffix_pos")
     check_cuda(lengths, torch.int32, (b,), "lengths")
     check_cuda(halo_start, torch.int32, (b,), "halo_start")
-    work = torch.empty((6, b, npad), dtype=torch.int32, device=data_u8.device)
     ln = torch.empty((b, n), dtype=torch.int32, device=data_u8.device)
     dist = torch.empty((b, n), dtype=torch.int32, device=data_u8.device)
     MATCH_TAIL2.launch(
-        data_u8.device, *(ptr(t.data_ptr()) for t in args + (work, ln, dist)),
+        data_u8.device, *(ptr(t.data_ptr()) for t in args + (ln, dist)),
         b, n, npad, base, payload_bytes, max_match, min_emit, int(lazy),
-        stream_of(data_u8),
+        *tail_window(payload_bytes, max_match), stream_of(data_u8),
     )
     return ln, dist
 

@@ -1,0 +1,106 @@
+"""Inputs that put the match tails' window argument at its edges.
+
+The tails K6 and K9 (``ops/lz_cuda.py``) run one CTA per tile of T
+positions and saturate distance-1 runs at R (``lz_cuda.tail_window``).
+:func:`tail_edge_batch` builds rows where that matters: runs of R - 1 to R
++ 1 across tile boundaries, periodic rows whose candidates chain through
+every extension round, and runs far longer than R under chaining hash
+candidates and a long suffix-field extension (K9's field choice). Both
+the kernels and their plain versions take any candidate plane, so the
+planes are synthetic; every capped candidate has a distance of at least 1,
+as the candidate kernels write them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from gzp_tpu_torch.ops.lz_cuda import padded_len, tail_window
+
+KINDS = ("edge_runs", "period3", "period37", "period300", "run_vs_suffix", "random")
+
+
+def _words(rng, shape, payload_bytes: int) -> np.ndarray:
+    """Random candidate words ``dist | len << 17 | capped << 22``: a third
+    capped at ``payload_bytes``, the rest of random length."""
+    capped = rng.random(shape) < 1 / 3
+    ln = np.where(capped, min(payload_bytes, 31), rng.integers(0, 32, shape))
+    dist = rng.integers(1, 32769, shape)
+    return (dist | (ln << 17) | (capped.astype(np.int64) << 22)).astype(np.int32)
+
+
+def _chain(dist: int, payload_bytes: int) -> np.int32:
+    """A capped candidate at ``dist``: it chains wherever ``dist`` recurs."""
+    return np.int32(dist | (min(payload_bytes, 31) << 17) | (1 << 22))
+
+
+def _put_run(row: np.ndarray, start: int, length: int, value: int) -> None:
+    """``length`` equal bytes from ``start``, with different bytes on both
+    sides, so the longest distance-1 run inside is ``length`` - 1."""
+    row[start: start + length] = value
+    if start > 0:
+        row[start - 1] = value ^ 0x55
+    if start + length < len(row):
+        row[start + length] = value ^ 0xAA
+
+
+def tail_edge_batch(kinds, n: int, *, payload_bytes: int, max_match: int = 258,
+                    tile: int | None = None, seed: int = 0) -> dict:
+    """One row per entry of ``kinds`` (names from :data:`KINDS`), ``n``
+    bytes each -> numpy ``data`` [rows, n] uint8, ``packed_hash`` and
+    ``packed_suffix`` [rows, Np] int32 (position order), ``lengths`` and
+    ``halo_start`` [rows] int32. Odd rows get ``halo_start`` > 0 (every
+    fourth on a tile boundary); every third row from the third ends before
+    ``n``. T and R are ``tail_window``'s for these arguments."""
+    t, _, r = tail_window(payload_bytes, max_match, tile)
+    npad = padded_len(n)
+    rows = len(kinds)
+    rng = np.random.default_rng(seed)
+    data = rng.integers(0, 256, (rows, n), dtype=np.uint8)
+    hsh = _words(rng, (rows, npad), payload_bytes)
+    suf = _words(rng, (rows, npad), payload_bytes)
+    lengths = np.full(rows, n, np.int32)
+    halo = np.zeros(rows, np.int32)
+    bounds = list(range(t, n, t))
+    for i, kind in enumerate(kinds):
+        row = data[i]
+        if kind == "edge_runs":
+            # runs of R - 1, R and R + 1 (byte runs one longer) starting
+            # before each tile boundary, at its middle, at the boundary - 1
+            # and at the boundary; chaining distance-1 hash candidates ahead
+            for k, edge in enumerate(bounds):
+                length = r + k % 3
+                start = edge - (length // 2, 1, length - 1, 0)[(k // 3) % 4]
+                if 1 <= start and start + length < n:
+                    _put_run(row, start, length, int(rng.integers(0, 256)))
+                    hsh[i, max(start - 2 * payload_bytes, 0): start] = _chain(1, payload_bytes)
+        elif kind.startswith("period"):
+            period = int(kind[len("period"):])
+            row[:] = np.resize(rng.integers(0, 256, period, dtype=np.uint8), n)
+            # a changed byte every ~700 positions stops chains at varied places
+            hits = rng.integers(0, n, max(n // 700, 1))
+            row[hits] ^= 0x3C
+            keep = rng.random(npad) < 0.97
+            hsh[i] = np.where(keep, _chain(period, payload_bytes), hsh[i])
+            suf[i] = np.where(keep, _chain(2 * period, payload_bytes), suf[i])
+        elif kind == "run_vs_suffix":
+            # runs far longer than R across tile boundaries, under chaining
+            # distance-1 hash candidates and a suffix field that extends
+            # through every round (K9's field choice at lengths above R)
+            length = 2 * r + 100
+            for edge in bounds[::2]:
+                start = edge - length // 3
+                if 1 <= start and start + length < n:
+                    _put_run(row, start, length, int(rng.integers(0, 256)))
+                    hsh[i, max(start - 2 * payload_bytes, 0): start] = _chain(1, payload_bytes)
+                    suf[i, start: min(start + length, npad)] = _chain(5, payload_bytes)
+        elif kind == "random":
+            row[:] = rng.integers(0, 4, n, dtype=np.uint8)  # many short runs
+        else:
+            raise ValueError(f"unknown kind {kind!r}; expected one of {KINDS}")
+        if i % 2 == 1:
+            halo[i] = bounds[0] if i % 4 == 1 and bounds else rng.integers(1, n // 2)
+        if i % 3 == 2:
+            lengths[i] = n - int(rng.integers(1, min(t, n)))
+    return dict(data=data, packed_hash=hsh, packed_suffix=suf, lengths=lengths,
+                halo_start=halo)

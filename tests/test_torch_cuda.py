@@ -1,6 +1,7 @@
 """Each CUDA kernel against its plain PyTorch version, on the card, at the
 main paths' full width (64 blocks of 128 KiB; level 3's config for K1, K2,
-K6 and K10, level 6's for K4, K5, K7, K8 and K9).
+K6 and K10, level 6's for K4, K5, K7, K8 and K9), and the tails K6 and K9
+on rows built to sit at the edges of their tiles and windows.
 
 Marked ``cuda``; without a CUDA device every test skips (decided in the
 fixture, never at import). Run on the card with ``python -m pytest -m
@@ -18,6 +19,7 @@ from gzp_tpu_torch import Mgzip, ZBuilder
 from gzp_tpu_torch.ops import deflate_kernel as dk
 from gzp_tpu_torch.ops import lz_cuda, pack_cuda
 from gzp_tpu_torch.ops.lz import _pos_bits
+from gzp_tpu_torch.utils.testing import KINDS, tail_edge_batch
 
 pytestmark = pytest.mark.cuda
 
@@ -165,3 +167,26 @@ def test_match_tail2_kernel(stages, stages6):
             stages["lengths"], stages["halo"])
     kw = dict(base=0, payload_bytes=4 * PW6, max_match=258, min_emit=3, lazy=True)
     _same(lz_cuda.match_tail2_cuda(*args, **kw), lz_cuda.match_tail2_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("n", [N, N - 1000], ids=["n131072", "n130072"])
+@pytest.mark.parametrize("fields,payload_bytes", [(1, 8), (1, 12), (1, 28), (2, 28)],
+                         ids=["K6-pb8", "K6-pb12", "K6-pb28", "K9-pb28"])
+def test_tails_at_tile_edges(stages, fields, payload_bytes, n):
+    """Runs of R - 1 to R + 1 across tile boundaries, periodic rows that
+    chain through every round, runs far above R against a long suffix
+    extension, halo_start > 0, lengths < n, and an n that is not a multiple
+    of T (``tail_edge_batch``; T and R from ``lz_cuda.tail_window``)."""
+    x = tail_edge_batch(KINDS * 4, n, payload_bytes=payload_bytes, seed=payload_bytes)
+    x = {k: torch.from_numpy(v).to(stages["data"].device) for k, v in x.items()}
+    planes = [x["packed_hash"], x["packed_suffix"]][:fields]
+    args = (x["data"], *planes, x["lengths"], x["halo_start"])
+    kw = dict(base=0, payload_bytes=payload_bytes, max_match=258, min_emit=3,
+              lazy=payload_bytes != 8)  # level 1 (8 context bytes) is not lazy
+    cuda, plain, lib = ((lz_cuda.match_tail_cuda, lz_cuda.match_tail_plain, lz_cuda.MATCH_TAIL)
+                        if fields == 1 else
+                        (lz_cuda.match_tail2_cuda, lz_cuda.match_tail2_plain, lz_cuda.MATCH_TAIL2))
+    before = lib.launches
+    got = cuda(*args, **kw)
+    assert lib.launches == before + 1
+    _same(got, plain(*args, **kw))
