@@ -11,13 +11,16 @@ Phases (any failure raises and exits non-zero; no result line then):
 3. kernels — at the main paths' shapes (64 blocks of 128 KiB: text, one
              all-zero block, one random block), each kernel held against
              its plain PyTorch version on the card (exact equality on
-             every output) and timed with CUDA events beside its bound:
+             every output) and timed beside its bound (device time from
+             CUDA-graph replay, and CUDA events call by call):
              K1, K2 (and K3's function), K6 and K10 at level 3's config,
              then K7, K4, K8, K1, K5 and K9 at level 6's (K8 also at
              level 9's 24 lags), with a stage split per level; K6 also
              at level 1's 8 context bytes (its widest window), and K6
              and K9 on rows built for their tile and window edges
-             (``tail_edge_batch``), held but not timed;
+             (``tail_edge_batch``), held but not timed; K10 also on rows
+             built for its look-back (``pack_edge_batch``), held but not
+             timed; K10's and K4's tile, grid, scratch and shared memory;
 4. paths   — 256 MiB of text through ``ZBuilder(Mgzip)`` on the card at
              level 3, then at level 6; for each, gzip must restore it,
              every kernel of the path must have been launched, the first
@@ -52,6 +55,7 @@ B, N = 64, 131072
 PATH_BYTES = 256 << 20
 SRC = "gzp_tpu_torch/csrc/"
 PALLAS = "gzp_tpu/ops/lz_pallas.py:"
+BUILD_LOGS: dict[str, str] = {}  # kernel library -> nvcc output (phase 2)
 
 
 def make_corpus(nbytes: int) -> bytes:
@@ -98,6 +102,31 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def graph_ms(fn, iters: int = 10, reps: int = 5) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in a
+    CUDA graph, replayed ``reps`` times between CUDA events, so the host's
+    launch overhead between calls does not count (``time_ms`` counts it
+    where the host is slower than the card)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (iters * reps)
+
+
 def max_abs_err(got, want) -> int:
     """Largest difference over every output of a kernel and its plain version."""
     if isinstance(got, torch.Tensor):
@@ -110,12 +139,15 @@ def max_abs_err(got, want) -> int:
 
 
 def hold(name, kernel, plain, args, kwargs, nbytes, nops, source, replaces):
-    """Compare kernel and plain version on the same card inputs, time both."""
+    """Compare kernel and plain version on the same card inputs, time both:
+    the kernel by CUDA-graph replay (``ms``) and call by call (printed as
+    ``call``), the plain version call by call."""
     got = kernel(*args, **kwargs)
     want = plain(*args, **kwargs)
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
-    ms = time_ms(lambda: kernel(*args, **kwargs))
+    ms = graph_ms(lambda: kernel(*args, **kwargs))
+    call_ms = time_ms(lambda: kernel(*args, **kwargs))
     plain_ms = time_ms(lambda: plain(*args, **kwargs), iters=3, warmup=1)
     bound_s = max(nbytes / HBM_BYTES_PER_S, nops / INT32_OPS_PER_S)
     row = {
@@ -125,7 +157,8 @@ def hold(name, kernel, plain, args, kwargs, nbytes, nops, source, replaces):
         "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= nops / INT32_OPS_PER_S else "operations",
         "library_ms": None,
     }
-    print(f"kernel {name}: max_abs_err {err}, {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+    print(f"kernel {name}: max_abs_err {err}, {ms:.4f} ms (call {call_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, "
           f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}; {nbytes} bytes, "
           f"{nops} ops)", flush=True)
     if err != 0:
@@ -166,6 +199,33 @@ def tail_edges(dev):
         check(f"{'K6' if fields == 1 else 'K9'} tile edges pb={pb} n={N - 1000}", kernel, plain,
               (x["data"], *planes, x["lengths"], x["halo_start"]),
               dict(base=0, payload_bytes=pb, max_match=258, min_emit=3, lazy=pb != 8))
+
+
+def smem_bytes(library: str, function: str) -> int:
+    """Static shared memory per CTA of the compiled function whose mangled
+    name contains ``function``, from ptxas's report in phase 2."""
+    current = None
+    for line in BUILD_LOGS[library].splitlines():
+        if "Compiling entry function" in line:
+            current = line.split("'")[1]
+        elif current and function in current and "Used" in line:
+            return int(line.split("bytes smem")[0].split(",")[-1]) if "smem" in line else 0
+    raise AssertionError(f"no ptxas report for {function} in {library}")
+
+
+def pack_edges(dev, base_bits):
+    """K10 on the look-back's edge rows at its tile T: E = 5T + 123 (a
+    ragged last tile), 4T (the tail entry first in its tile), T - 37."""
+    from gzp_tpu_torch.ops import pack_cuda
+    from gzp_tpu_torch.utils.testing import PACK_KINDS, pack_edge_batch
+
+    t = pack_cuda.PACK_TILE
+    for e in (5 * t + 123, 4 * t, t - 37):
+        bits, nbits = pack_edge_batch(PACK_KINDS * 4, e, tile=t, base_bits=base_bits, seed=e)
+        check(f"K10 pack_prescan edge rows E={e} base_bits={base_bits}",
+              pack_cuda.pack_prescan_cuda, pack_cuda.pack_prescan_plain,
+              (torch.from_numpy(bits.view(np.int32)).to(dev), torch.from_numpy(nbits).to(dev),
+               base_bits), {})
 
 
 def members(blob: bytes) -> list[bytes]:
@@ -239,6 +299,14 @@ def level3_kernels(data, lengths, halo):
         nbytes=2 * B * e * 4 + 2 * B * ep * 4 + 4 * B, nops=B * ep * 50,
         source=SRC + "pack_prescan.cu", replaces="gzp_tpu/ops/pack_pallas.py:65",
     )
+    t, tiles, words = pack_cuda.prescan_plan(B, e)
+    print(f"  plan: E {e}, Ep {ep}; T {t} entries per CTA of {t // 8} threads; grid "
+          f"{B * tiles} ({tiles} tiles per row x {B}); scratch {8 * words} B (status words + "
+          f"counter, zeroed per call); static shared memory "
+          f"{smem_bytes('pack_prescan', f'pack_prescan_kernelILi{t // 8}E')} B per CTA",
+          flush=True)
+    for base_bits in (0, 144, 160):
+        pack_edges(data.device, base_bits)
 
     # where one batch's device time goes, stage by stage (CUDA events)
     words_args = (all_bits, all_n, 8 * cfg.header_len, cfg.out_words)
@@ -284,16 +352,42 @@ def level6_kernels(data, lengths, halo):
     skeys = torch.gather(keys, 2, order.expand(pw, -1, -1))
     sp = torch.gather(pos, 1, order)
 
-    def lcp_bytes(lcp):
-        """Bytes K4 must move for these inputs: each slot's words up to the
-        first that differs from its neighbour's, and one output word."""
-        return int(4 * (torch.clamp(lcp.to(torch.int64) // 4 + 1, max=pw).sum() + lcp.numel()))
+    def lcp_words(lcp):
+        """Words each slot compares per lag: up to its first difference."""
+        return torch.clamp(lcp.to(torch.int64) // 4 + 1, max=pw)
 
+    def lcp_bytes(lcp):
+        """Bytes K4 must move for these inputs, all lags in one launch: each
+        slot's words once, up to the deepest first difference from its
+        neighbours over the lags, and one output word per lag."""
+        return int(4 * (lcp_words(lcp).amax(dim=0).sum() + lcp.numel()))
+
+    def lcp_bytes_per_lag(lcp):
+        """The count of one launch per lag: each lag's words up to its first
+        difference, read once per lag."""
+        return int(4 * (lcp_words(lcp).sum() + lcp.numel()))
+
+    def lcp_ops(lcp):
+        """About 8 integer operations per word compared, per lag."""
+        return int(8 * lcp_words(lcp).sum())
+
+    def lcp_sector_bytes(lcp):
+        """The same in whole 32-byte sectors, the unit device memory moves:
+        a plane's sector of 8 slots is read if any of them needs it."""
+        depth = lcp_words(lcp).amax(dim=0).view(B, -1, 8).amax(dim=-1)
+        return int(32 * depth.sum() + 4 * lcp.numel())
+
+    print(f"  K4 plan: T {lz_cuda.LCP_TILE} slots per CTA of 256 threads (4 each); grid "
+          f"({-(-npad // lz_cuda.LCP_TILE)}, {B}); one launch for every lag; scratch 0 B; "
+          f"static shared memory {smem_bytes('lcp_lags', f'lcp_lags_kernelILi{pw}ELb1E')} B "
+          f"per CTA", flush=True)
     adj_want = lz_cuda.lcp_lags_plain(skeys, 1, big_endian=True)
+    print(f"  K4 big-endian lag 1 bytes: {lcp_bytes(adj_want)} needed; "
+          f"{lcp_sector_bytes(adj_want)} in whole 32-byte sectors", flush=True)
     adj3, rows["K4"] = hold(
         "K4 lcp_lags big-endian lag 1", lz_cuda.lcp_lags_cuda, lz_cuda.lcp_lags_plain,
         (skeys, 1), dict(big_endian=True),
-        nbytes=lcp_bytes(adj_want), nops=slots * 8 * int(pw),
+        nbytes=lcp_bytes(adj_want), nops=lcp_ops(adj_want),
         source=SRC + "lcp_lags.cu", replaces=PALLAS + "315",
     )
     adj = adj3[0]
@@ -320,10 +414,13 @@ def level6_kernels(data, lengths, halo):
     sk, horder = torch.sort(key.to(torch.int64) & 0xFFFFFFFF, dim=1)
     spays = torch.gather(pays, 2, horder.expand(pw, -1, -1))
     lcp_le_want = lz_cuda.lcp_lags_plain(spays, 2, big_endian=False)
+    print(f"  K4 little-endian lags 1-2 bytes: {lcp_bytes(lcp_le_want)} needed in one launch "
+          f"(read once per lag: {lcp_bytes_per_lag(lcp_le_want)}); "
+          f"{lcp_sector_bytes(lcp_le_want)} in whole 32-byte sectors", flush=True)
     lcps, _ = hold(
-        "K4 lcp_lags little-endian lags 1-2", lz_cuda.lcp_lags_cuda, lz_cuda.lcp_lags_plain,
-        (spays, 2), dict(big_endian=False),
-        nbytes=lcp_bytes(lcp_le_want), nops=2 * slots * 8 * pw,
+        "K4 lcp_lags little-endian lags 1-2 (one launch)", lz_cuda.lcp_lags_cuda,
+        lz_cuda.lcp_lags_plain, (spays, 2), dict(big_endian=False),
+        nbytes=lcp_bytes(lcp_le_want), nops=lcp_ops(lcp_le_want),
         source=SRC + "lcp_lags.cu", replaces=PALLAS + "315",
     )
     (sp_h, packed_h), rows["K5"] = hold(
@@ -436,6 +533,7 @@ def main() -> int:
     # ---- 2. build
     t0 = time.perf_counter()
     logs = cuda_lib.build(force=True, ptxas_verbose=True)
+    BUILD_LOGS.update(logs)
     print(f"build: {len(logs)} kernels in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():

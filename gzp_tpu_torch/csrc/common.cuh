@@ -14,11 +14,6 @@ GZP_EXPORT const char* gzp_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The row-scan kernel K10 runs one CTA of SCAN_BLOCK threads per row and
-// walks the row in tiles of SCAN_BLOCK elements.
-constexpr int SCAN_BLOCK = 1024;
-constexpr int SCAN_WARPS = SCAN_BLOCK / 32;
-
 // Inclusive scan of one warp in lane order: lane l gets op(x_0, ..., x_l).
 // `op(a, b)` combines an earlier element `a` with a later one `b`; it must
 // be associative, not necessarily commutative.
@@ -37,7 +32,7 @@ __device__ __forceinline__ T warp_inclusive_scan(T x, Op op) {
 // of 32, at most 1024). `scratch` is NT / 32 elements of shared memory;
 // `total` receives the aggregate of the whole CTA in every thread.
 // Contains barriers: every thread of the CTA must call it.
-template <int NT = SCAN_BLOCK, typename T, typename Op>
+template <int NT, typename T, typename Op>
 __device__ __forceinline__ T block_inclusive_scan(T x, Op op, T* scratch,
                                                   T& total) {
   constexpr int NW = NT / 32;

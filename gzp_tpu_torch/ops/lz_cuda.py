@@ -16,7 +16,7 @@ content-sorted pass and a shallow hash pass, then merges them:
      content sort :func:`suffix_order`  LSD passes of ``torch.sort``
   K4 :func:`lcp_lags_cuda`           adjacent LCP of the sorted words
   K8 :func:`suffix_merge_cuda`       ±lags candidates by running-min LCP
-  K1, hash sort, then K4 (per lag) + K5 :func:`hash_merge_cuda`
+  K1, hash sort, then K4 (both lags) + K5 :func:`hash_merge_cuda`
                                      (``neighbor_cuda`` at payload_words > 3)
   K9 :func:`match_tail2_cuda`        K6 with a hash and a suffix field
 
@@ -59,7 +59,10 @@ MATCH_TAIL = CudaKernel(
 BUILD_SUFFIX_KEYS = CudaKernel(
     "build_suffix_keys.cu", "gzp_build_suffix_keys", [ptr, ptr, ptr, i32, i32, i32, i32]
 )
-LCP_LAGS = CudaKernel("lcp_lags.cu", "gzp_lcp_lag", [ptr, ptr, i32, i32, i32, i32, i32])
+LCP_LAGS = CudaKernel("lcp_lags.cu", "gzp_lcp_lags", [ptr, ptr, i32, i32, i32, i32, i32])
+# slots per CTA of K4: TILE in csrc/lcp_lags.cu (256 threads x 4 slots),
+# for the grid that reports print and the tests' ragged rows
+LCP_TILE = 1024
 HASH_MERGE = CudaKernel(
     "hash_merge.cu", "gzp_hash_merge",
     [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32],
@@ -216,7 +219,7 @@ def neighbor_cuda(sk, pays, halo_start, *, pos_bits: int, lags: int, max_dist: i
     :func:`neighbor_plain`. Up to 3 context words it is K2 (see
     ``csrc/neighbor.cu``; ``lags`` > 2 is the TPU's K3). Wider context
     (the suffix matcher's hash pass) takes the route ``neighbor_pallas``
-    takes there: K4 for each lag, then K5."""
+    takes there: K4 (one launch for every lag), then K5."""
     pw = pays.shape[0]
     if pw > 3:
         lcps = lcp_lags_cuda(pays, lags, big_endian=False)
@@ -271,20 +274,20 @@ def lcp_lags_plain(words, lags: int, *, big_endian: bool):
 
 
 def lcp_lags_cuda(words, lags: int, *, big_endian: bool):
-    """K4 (see ``csrc/lcp_lags.cu``), one launch per lag; same contract as
-    :func:`lcp_lags_plain`."""
+    """K4 (see ``csrc/lcp_lags.cu``), one launch for every lag, grid
+    (ceil(Np / ``LCP_TILE``), B); same contract as :func:`lcp_lags_plain`
+    for 1 to 7 words."""
     if on_cpu(words):
         return lcp_lags_plain(words, lags, big_endian=big_endian)
     pw, b, npad = words.shape
-    if lags < 1 or pw < 1:
+    if lags < 1 or not 1 <= pw <= 7:
         raise ValueError(f"lags={lags}, payload_words={pw}")
     check_cuda(words, torch.int32, (pw, b, npad), "words")
     out = torch.empty((lags, b, npad), dtype=torch.int32, device=words.device)
-    for lag in range(1, lags + 1):
-        LCP_LAGS.launch(
-            words.device, ptr(words.data_ptr()), ptr(out[lag - 1].data_ptr()),
-            b, npad, pw, lag, int(big_endian), stream_of(words),
-        )
+    LCP_LAGS.launch(
+        words.device, ptr(words.data_ptr()), ptr(out.data_ptr()),
+        b, npad, pw, lags, int(big_endian), stream_of(words),
+    )
     return out
 
 

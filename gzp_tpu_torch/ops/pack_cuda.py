@@ -2,10 +2,11 @@
 
 Counterpart of ``gzp_tpu/ops/pack_pallas.py``. K10
 (:func:`pack_prescan_cuda`) turns per-entry (value, width) pairs into
-(word index, word value) pairs in one pass per row: a width prefix sum
-gives each entry's bit position, a segmented OR-scan over entries builds
-each output word, and the entry that completes a word carries its index
-as the key. :func:`pack_entries_sortscan_cuda` then places every keyed
+(word index, word value) pairs in one pass: a width prefix sum gives each
+entry's bit position, a segmented OR-scan over entries builds each output
+word, and the entry that completes a word carries its index as the key.
+The kernel splits each row into tiles and carries both prefixes across
+them with a decoupled look-back. :func:`pack_entries_sortscan_cuda` then places every keyed
 value at its word — the TPU sorts by key; the key is the destination
 index, so here it is a scatter with the same result.
 
@@ -25,8 +26,13 @@ LANES = 128
 M32 = 0xFFFFFFFF
 
 PACK_PRESCAN = CudaKernel(
-    "pack_prescan.cu", "gzp_pack_prescan", [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32]
+    "pack_prescan.cu", "gzp_pack_prescan",
+    [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32],
 )
+# entries per CTA of K10: 8 per thread, 512 threads (1024 and 2048, CTAs of
+# 128 and 256 threads, also build)
+PACK_TILE = 4096
+PACK_TILES = (1024, 2048, 4096)
 
 
 def prescan_len(e: int) -> int:
@@ -34,6 +40,18 @@ def prescan_len(e: int) -> int:
     (at least 8 rows), as the Pallas kernel pads."""
     rows = max(-(-(e + 1) // LANES), 8)
     return -(-rows // 8) * 8 * LANES
+
+
+def prescan_plan(rows: int, e: int, tile: int | None = None):
+    """K10's launch at ``rows`` x ``e`` entries: ``(T, tiles per row,
+    scratch u64 words)``, T = ``tile`` or, by default, ``PACK_TILE`` as it
+    stands at the call. The scratch holds a width and an OR status word per
+    tile and the tile counter (``csrc/pack_prescan.cu``)."""
+    tile = PACK_TILE if tile is None else tile
+    if tile not in PACK_TILES:
+        raise ValueError(f"tile={tile}: K10 builds {PACK_TILES}")
+    tiles = -(-prescan_len(e) // tile)
+    return tile, tiles, 2 * rows * tiles + 1
 
 
 def pack_prescan_plain(bits: torch.Tensor, nbits: torch.Tensor, base_bits: int):
@@ -79,7 +97,8 @@ def pack_prescan_plain(bits: torch.Tensor, nbits: torch.Tensor, base_bits: int):
 
 
 def pack_prescan_cuda(bits: torch.Tensor, nbits: torch.Tensor, base_bits: int):
-    """K10 (see ``csrc/pack_prescan.cu``); same contract as
+    """K10 (see ``csrc/pack_prescan.cu``: tiles of ``PACK_TILE`` entries
+    across the row, one pass with a decoupled look-back); same contract as
     :func:`pack_prescan_plain`."""
     if on_cpu(bits):
         return pack_prescan_plain(bits, nbits, base_bits)
@@ -87,14 +106,16 @@ def pack_prescan_cuda(bits: torch.Tensor, nbits: torch.Tensor, base_bits: int):
     ep = prescan_len(e)
     check_cuda(bits, torch.int32, (b, e), "bits")
     check_cuda(nbits, torch.int32, (b, e), "nbits")
+    tile, _, words = prescan_plan(b, e)
     key = torch.empty((b, ep), dtype=torch.int32, device=bits.device)
     val = torch.empty((b, ep), dtype=torch.int32, device=bits.device)
     total_bits = torch.empty((b,), dtype=torch.int32, device=bits.device)
+    scratch = torch.empty((words,), dtype=torch.int64, device=bits.device)
     PACK_PRESCAN.launch(
         bits.device,
         ptr(bits.data_ptr()), ptr(nbits.data_ptr()), ptr(key.data_ptr()),
-        ptr(val.data_ptr()), ptr(total_bits.data_ptr()), b, e, ep, base_bits,
-        stream_of(bits),
+        ptr(val.data_ptr()), ptr(total_bits.data_ptr()), ptr(scratch.data_ptr()),
+        b, e, ep, base_bits, tile, stream_of(bits),
     )
     return key, val, total_bits
 

@@ -1,4 +1,6 @@
-"""Inputs that put the match tails' window argument at its edges.
+"""Inputs that put the tile-parallel kernels' cross-tile arguments at their
+edges: the match tails' window (:func:`tail_edge_batch`) and the pack
+pre-scan's look-back (:func:`pack_edge_batch`).
 
 The tails K6 and K9 (``ops/lz_cuda.py``) run one CTA per tile of T
 positions and saturate distance-1 runs at R (``lz_cuda.tail_window``).
@@ -18,6 +20,7 @@ import numpy as np
 from gzp_tpu_torch.ops.lz_cuda import padded_len, tail_window
 
 KINDS = ("edge_runs", "period3", "period37", "period300", "run_vs_suffix", "random")
+PACK_KINDS = ("long_segment", "zero_tiles", "tile_end_flush", "straddle31", "random")
 
 
 def _words(rng, shape, payload_bytes: int) -> np.ndarray:
@@ -104,3 +107,67 @@ def tail_edge_batch(kinds, n: int, *, payload_bytes: int, max_match: int = 258,
             lengths[i] = n - int(rng.integers(1, min(t, n)))
     return dict(data=data, packed_hash=hsh, packed_suffix=suf, lengths=lengths,
                 halo_start=halo)
+
+
+def _widths(rng, e: int) -> np.ndarray:
+    """Random entry widths: half zero, the rest 1..31."""
+    return np.where(rng.random(e) < 0.5, 0, rng.integers(1, 32, e)).astype(np.int64)
+
+
+def _end_word_at(nb: np.ndarray, idx: int, base_bits: int) -> None:
+    """Set the width of entry ``idx`` so that the bit position after it is a
+    multiple of 32 (nothing to do if it already is at entry ``idx``)."""
+    nb[idx] = (-(base_bits + int(nb[:idx].sum()))) % 32
+
+
+def pack_edge_batch(kinds, e: int, *, tile: int, base_bits: int = 0, seed: int = 0):
+    """One row per entry of ``kinds`` (names from :data:`PACK_KINDS`) of
+    ``e`` (value, width) entries for the pack pre-scan K10, whose CTAs take
+    tiles of ``tile`` entries -> numpy (bits [rows, e] uint32, nbits [rows,
+    e] int32), every value < 2**width.
+
+    * ``long_segment``: from tile / 2 on, a word-aligned segment of 3 tiles
+      of zero-width entries with 20 one-bit entries of value 1 spread over
+      it: no entry completes a word, so its OR state crosses two whole
+      tiles without a segment start;
+    * ``zero_tiles``: entries [tile, 3 * tile) have width 0;
+    * ``tile_end_flush``: the last entry of every tile completes a word
+      exactly (a 31-bit entry from bit 1 of a word);
+    * ``straddle31``: 31-bit entries across every tile edge, each crossing
+      a word boundary with its high bits;
+    * ``random``: half zero-width entries.
+
+    The rest of each row is random, half zero-width. ``base_bits`` is the
+    offset the pre-scan will be given (the alignments depend on it)."""
+    rng = np.random.default_rng(seed)
+    nbits = np.zeros((len(kinds), e), np.int64)
+    ones = np.zeros((len(kinds), e), bool)  # one-bit entries of value 1
+    edges = list(range(tile, e, tile))
+    for i, kind in enumerate(kinds):
+        nb = nbits[i]
+        nb[:] = _widths(rng, e)
+        if kind == "long_segment":
+            a = min(tile // 2, e)
+            span = min(3 * tile, e - a)
+            if a > 0 and span > 0:
+                _end_word_at(nb, a - 1, base_bits)
+                nb[a: a + span] = 0
+                at = a + (np.arange(20) * span) // 20
+                nb[at] = 1
+                ones[i, at] = True
+        elif kind == "zero_tiles":
+            nb[tile: 3 * tile] = 0
+        elif kind == "tile_end_flush":
+            for edge in edges:
+                if edge >= 2:
+                    # bit position 1 mod 32 before entry edge - 1, then 31 bits
+                    nb[edge - 2] = (1 - base_bits - int(nb[: edge - 2].sum())) % 32
+                    nb[edge - 1] = 31
+        elif kind == "straddle31":
+            for edge in edges:
+                nb[max(edge - 3, 0): edge + 3] = 31
+        elif kind != "random":
+            raise ValueError(f"unknown kind {kind!r}; expected one of {PACK_KINDS}")
+    values = rng.integers(1 << 30, 1 << 31, nbits.shape)  # top bits set: nonzero hi
+    bits = np.where(ones, 1, values & ((1 << nbits) - 1))
+    return bits.astype(np.uint32), nbits.astype(np.int32)

@@ -1,7 +1,10 @@
 """Each CUDA kernel against its plain PyTorch version, on the card, at the
 main paths' full width (64 blocks of 128 KiB; level 3's config for K1, K2,
-K6 and K10, level 6's for K4, K5, K7, K8 and K9), and the tails K6 and K9
-on rows built to sit at the edges of their tiles and windows.
+K6 and K10, level 6's for K4, K5, K7, K8 and K9), the tails K6 and K9 on
+rows built to sit at the edges of their tiles and windows, the pack
+pre-scan K10 on rows built for its look-back, and the LCP ladder K4 over
+every word count, lags 1-3 and both byte orders at row lengths that are
+not a multiple of its tile.
 
 Marked ``cuda``; without a CUDA device every test skips (decided in the
 fixture, never at import). Run on the card with ``python -m pytest -m
@@ -19,7 +22,7 @@ from gzp_tpu_torch import Mgzip, ZBuilder
 from gzp_tpu_torch.ops import deflate_kernel as dk
 from gzp_tpu_torch.ops import lz_cuda, pack_cuda
 from gzp_tpu_torch.ops.lz import _pos_bits
-from gzp_tpu_torch.utils.testing import KINDS, tail_edge_batch
+from gzp_tpu_torch.utils.testing import KINDS, PACK_KINDS, pack_edge_batch, tail_edge_batch
 
 pytestmark = pytest.mark.cuda
 
@@ -95,6 +98,33 @@ def test_pack_prescan_kernel(stages):
     _same(pack_cuda.pack_prescan_cuda(*args), pack_cuda.pack_prescan_plain(*args))
 
 
+@pytest.mark.parametrize("tile", pack_cuda.PACK_TILES)
+def test_pack_prescan_tiles(stages, tile, monkeypatch):
+    """The level-3 entries at each tile size the kernel builds."""
+    monkeypatch.setattr(pack_cuda, "PACK_TILE", tile)
+    args = (stages["bits"], stages["nbits"], 160)
+    before = pack_cuda.PACK_PRESCAN.launches
+    got = pack_cuda.pack_prescan_cuda(*args)
+    assert pack_cuda.PACK_PRESCAN.launches == before + 1
+    _same(got, pack_cuda.pack_prescan_plain(*args))
+
+
+@pytest.mark.parametrize("base_bits", [0, 144, 160])
+@pytest.mark.parametrize("tiles,extra", [(5, 123), (4, 0), (0, 4059)],
+                         ids=["ragged", "tail-first", "e-lt-T"])
+def test_pack_prescan_at_tile_edges(stages, tiles, extra, base_bits):
+    """A segment across two whole tiles, zero-width tiles, flushes on a
+    tile's last entry, 31-bit entries across tile edges, the tail entry
+    first in its tile, and E < T (``pack_edge_batch``), at the kernel's T."""
+    t = pack_cuda.PACK_TILE
+    e = tiles * t + extra
+    bits, nbits = pack_edge_batch(PACK_KINDS * 4, e, tile=t, base_bits=base_bits, seed=e)
+    dev = stages["data"].device
+    args = (torch.from_numpy(bits.view(np.int32)).to(dev), torch.from_numpy(nbits).to(dev),
+            base_bits)
+    _same(pack_cuda.pack_prescan_cuda(*args), pack_cuda.pack_prescan_plain(*args))
+
+
 @pytest.mark.parametrize("level", [3, 6])
 def test_members_equal_cpu_run(stages, level):
     blob = stages["data"][[0, 1, 2, 3]].cpu().numpy().tobytes()
@@ -143,6 +173,34 @@ def test_lcp_lags_kernel(stages6, big_endian):
     words, lags = (stages6["skeys"], 1) if big_endian else (stages6["spays"], 2)
     _same([lz_cuda.lcp_lags_cuda(words, lags, big_endian=big_endian)],
           [lz_cuda.lcp_lags_plain(words, lags, big_endian=big_endian)])
+
+
+def _ladder_rows(pw, npad, seed):
+    """[pw, 4, npad] int32: equal words, random words, words equal but for
+    the last, and a sorted row of few distinct words."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 1 << 32, (pw, 4, npad), dtype=np.uint64).astype(np.uint32)
+    w[:, 0] = w[:, 0, :1]
+    w[:, 2] = w[:, 2, :1]
+    w[-1, 2] ^= rng.integers(0, 256, npad).astype(np.uint32) << (8 * (npad % 4))
+    few = rng.integers(0, 3, (pw, npad)).astype(np.uint32) * np.uint32(0x01010101)
+    w[:, 3] = few[:, np.lexsort(few[::-1])]
+    return torch.from_numpy(w.view(np.int32))
+
+
+@pytest.mark.parametrize("big_endian", [True, False], ids=["be", "le"])
+@pytest.mark.parametrize("pw", range(1, 8))
+def test_lcp_lags_grid(stages, pw, big_endian):
+    """Every word count and lags 1-3 at Np = 3000 (not a multiple of 4:
+    scalar loads) and 4100 (a ragged last tile); one launch per call."""
+    for npad in (3000, 4100):
+        assert npad % lz_cuda.LCP_TILE
+        words = _ladder_rows(pw, npad, seed=npad + pw).to(stages["data"].device)
+        for lags in (1, 2, 3):
+            before = lz_cuda.LCP_LAGS.launches
+            got = lz_cuda.lcp_lags_cuda(words, lags, big_endian=big_endian)
+            assert lz_cuda.LCP_LAGS.launches == before + 1
+            _same([got], [lz_cuda.lcp_lags_plain(words, lags, big_endian=big_endian)])
 
 
 @pytest.mark.parametrize("lags", [16, 24])

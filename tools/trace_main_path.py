@@ -8,8 +8,9 @@ Compresses ``batches`` × 64 blocks of 128 KiB of bench text through
 (after one warm-up batch) under ``torch.profiler``, then prints one JSON
 line: wall time, the device's busy and idle share of it (union of kernel,
 copy and memset intervals in the trace), device operations per batch,
-and the kernels with the most device time. Exits non-zero without a card
-or when the trace holds no device activity.
+the kernels with the most device time, and the device time per batch of
+each of this package's kernels (by function name, ``<library>_kernel``).
+Exits non-zero without a card or when the trace holds no device activity.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 import argparse
 import io
 import json
+import re
 import sys
 import time
 from collections import defaultdict
@@ -39,6 +41,8 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))  # the repo root
     from chip_smoke import make_corpus  # bench.py's text generator, seed 1234
     from gzp_tpu_torch import Mgzip, ZBuilder
+    from gzp_tpu_torch.ops import lz_cuda, pack_cuda  # noqa: F401  (registers the kernels)
+    from gzp_tpu_torch.runtime import cuda_lib
 
     data = make_corpus(B * N * args.batches)
 
@@ -81,6 +85,13 @@ def main() -> int:
         per_name[e["name"]][1] += float(e["dur"])
     top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:15]
     kernels = [e for e in device if e["cat"] == "kernel"]
+    ours = {}
+    for lib in cuda_lib.registered():
+        pattern = re.compile(rf"\b{lib.name}_kernel\b")
+        durs = [float(e["dur"]) for e in kernels if pattern.search(e["name"])]
+        if durs:
+            ours[lib.name] = {"count": len(durs) / args.batches,
+                              "ms": sum(durs) / 1e3 / args.batches}
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "level": args.level,
@@ -91,6 +102,7 @@ def main() -> int:
         "kernels_per_batch": len(kernels) / args.batches,
         "device_ops_per_batch": len(device) / args.batches,
         "top_device_ms": {name[:90]: {"count": c, "ms": d / 1e3} for name, (c, d) in top},
+        "package_kernels_per_batch": ours,
     }))
     return 0
 
