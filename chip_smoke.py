@@ -11,8 +11,8 @@ Phases (any failure raises and exits non-zero; no result line then):
 3. kernels — at the main paths' shapes (64 blocks of 128 KiB: text, one
              all-zero block, one random block), each kernel held against
              its plain PyTorch version on the card (exact equality on
-             every output) and timed beside its bound (device time from
-             CUDA-graph replay, and CUDA events call by call):
+             every output) and timed beside its bound (CUDA events call
+             by call, and device time from CUDA-graph replay beside it):
              K1, K2 (and K3's function), K6 and K10 at level 3's config,
              then K7, K4, K8, K1, K5 and K9 at level 6's (K8 also at
              level 9's 24 lags), with a stage split per level; K6 also
@@ -139,15 +139,15 @@ def max_abs_err(got, want) -> int:
 
 
 def hold(name, kernel, plain, args, kwargs, nbytes, nops, source, replaces):
-    """Compare kernel and plain version on the same card inputs, time both:
-    the kernel by CUDA-graph replay (``ms``) and call by call (printed as
-    ``call``), the plain version call by call."""
+    """Compare kernel and plain version on the same card inputs, time both
+    call by call with CUDA events (``ms``, ``plain_ms``), and the kernel
+    also by CUDA-graph replay (``graph_ms``)."""
     got = kernel(*args, **kwargs)
     want = plain(*args, **kwargs)
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
-    ms = graph_ms(lambda: kernel(*args, **kwargs))
-    call_ms = time_ms(lambda: kernel(*args, **kwargs))
+    ms = time_ms(lambda: kernel(*args, **kwargs))
+    replay_ms = graph_ms(lambda: kernel(*args, **kwargs))
     plain_ms = time_ms(lambda: plain(*args, **kwargs), iters=3, warmup=1)
     bound_s = max(nbytes / HBM_BYTES_PER_S, nops / INT32_OPS_PER_S)
     row = {
@@ -155,9 +155,9 @@ def hold(name, kernel, plain, args, kwargs, nbytes, nops, source, replaces):
         "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_s * 1e3,
         "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= nops / INT32_OPS_PER_S else "operations",
-        "library_ms": None,
+        "library_ms": None, "graph_ms": replay_ms,
     }
-    print(f"kernel {name}: max_abs_err {err}, {ms:.4f} ms (call {call_ms:.4f} ms, plain "
+    print(f"kernel {name}: max_abs_err {err}, {ms:.4f} ms (graph {replay_ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, "
           f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}; {nbytes} bytes, "
           f"{nops} ops)", flush=True)
@@ -299,11 +299,12 @@ def level3_kernels(data, lengths, halo):
         nbytes=2 * B * e * 4 + 2 * B * ep * 4 + 4 * B, nops=B * ep * 50,
         source=SRC + "pack_prescan.cu", replaces="gzp_tpu/ops/pack_pallas.py:65",
     )
-    t, tiles, words = pack_cuda.prescan_plan(B, e)
+    t = pack_cuda.PACK_TILE
+    tiles, words = pack_cuda.prescan_plan(B, e)
     print(f"  plan: E {e}, Ep {ep}; T {t} entries per CTA of {t // 8} threads; grid "
           f"{B * tiles} ({tiles} tiles per row x {B}); scratch {8 * words} B (status words + "
           f"counter, zeroed per call); static shared memory "
-          f"{smem_bytes('pack_prescan', f'pack_prescan_kernelILi{t // 8}E')} B per CTA",
+          f"{smem_bytes('pack_prescan', 'pack_prescan_kernel')} B per CTA",
           flush=True)
     for base_bits in (0, 144, 160):
         pack_edges(data.device, base_bits)

@@ -17,10 +17,11 @@
 // per padded entry.
 //
 // Design: a single-pass scan with decoupled look-back (Merrill and
-// Garland). Each CTA of BLOCK threads takes one tile of T = BLOCK * ITEMS
-// consecutive entries of a row (ITEMS = 8 per thread, read with 16-byte
-// loads), so a row of Ep entries is ceil(Ep / T) tiles and the grid is
-// rows x that; T (1024, 2048 or 4096) picks BLOCK.
+// Garland). Each CTA of BLOCK = 512 threads takes one tile of T = BLOCK *
+// ITEMS = 4096 consecutive entries of a row (ITEMS = 8 per thread, read
+// with 16-byte loads), so a row of Ep entries is ceil(Ep / T) tiles and the
+// grid is rows x that. (T = 1024 and 2048 ran within 8% of it on an H100
+// 80GB HBM3 at 700 W.)
 // A tile carries two prefixes from the tiles before it:
 //   1. the width sum: the tile publishes its aggregate, looks back for its
 //      exclusive prefix, then publishes the inclusive one;
@@ -43,22 +44,30 @@
 // The keys need only the width prefix, so they are stored before the OR
 // look-back.
 //
-// What holds it back (tools/probe_lookback.py on the H100): a CTA spends
-// about 40% of its cycles in the two look-backs, mostly polling for a
-// predecessor that has not published yet, and 3 CTAs per SM keep too few
-// loads in flight to cover that. Persistent CTAs that claim the next tile
+// What holds it back (tools/probe_lookback.py on an H100 80GB HBM3 at
+// 700 W): a CTA spends 44% of its cycles in the two look-backs, mostly
+// polling for a predecessor that has not published yet, and 3 CTAs per SM
+// keep too few loads in flight to cover that. Persistent CTAs that claim the next tile
 // and stage it with cp.async during the look-backs were slower: a claimed
 // tile publishes only after its CTA's current one, which lengthens every
 // look-back chain.
 //
-// Built with -DGZP_PACK_PROBE (tools/probe_lookback.py, never by the
-// package), thread 0 of each tile also writes PROBE_WORDS u64 after the
-// counter: the clock64() cycles of each phase and the look-backs' polls.
+// PACK_PROBE(i) marks the end of phase i and PACK_PROBE_POLLS(polls) the
+// end of the tile; both are empty here. tools/probe_lookback.cu defines
+// them before it includes this file, to stamp each phase's clock and count
+// the look-backs' polls.
 #include "common.cuh"
+
+#ifndef PACK_PROBE
+#define PACK_PROBE(i)
+#define PACK_PROBE_POLLS(polls)
+#endif
 
 namespace {
 
+constexpr int BLOCK = 512;
 constexpr int ITEMS = 8;
+constexpr int T = BLOCK * ITEMS;
 constexpr unsigned FULL = 0xffffffffu;
 
 using u64 = unsigned long long;
@@ -100,18 +109,6 @@ __device__ __forceinline__ u64 load_status(const u64* p) {
 __device__ __forceinline__ void store_status(u64* p, u64 v) {
   *reinterpret_cast<volatile u64*>(p) = v;
 }
-
-#ifdef GZP_PACK_PROBE
-// per tile: cycles from start to the tile index, to the width sum, through
-// the width look-back, to the OR sum (the keys' stores included), through
-// the OR look-back, to the values' stores; then the polls of each look-back
-// (reloads of a status not yet published, plus windows walked past)
-constexpr int PROBE_WORDS = 8;
-#define PROBE_STAMP(i) \
-  if (threadIdx.x == 0) stamp[i] = clock64()  // shared: no registers held
-#else
-#define PROBE_STAMP(i)
-#endif
 
 // Exclusive scan over the CTA in threadIdx order, identity 0; `total`
 // receives the CTA's aggregate. Every thread must call it.
@@ -177,15 +174,13 @@ __device__ u64 scan_tile(u64* status, int tile, u64 aggregate, Op op, Terminal t
   return prefix;
 }
 
-// 1536 threads per SM: 3 CTAs of 512 at 40 registers (2 at the 54 the
-// compiler picks unbounded, which ran 8% slower on the H100)
-template <int BLOCK>
-__global__ void __launch_bounds__(BLOCK, 1536 / BLOCK)
+// 3 CTAs of 512 threads per SM at 40 registers (2 at the 54 the compiler
+// picks unbounded, which ran 10% slower on an H100 80GB HBM3 at 700 W)
+__global__ void __launch_bounds__(BLOCK, 3)
 pack_prescan_kernel(const uint32_t* __restrict__ bits, const int32_t* __restrict__ nbits,
                     uint32_t* __restrict__ key, uint32_t* __restrict__ val,
                     int32_t* __restrict__ total_bits, u64* __restrict__ status,
                     unsigned* __restrict__ counter, int e, int ep, int tiles, int base_bits) {
-  constexpr int T = BLOCK * ITEMS;
   constexpr int WARPS = BLOCK / 32;
   __shared__ u64 width_sums[WARPS];
   __shared__ u64 or_sums[WARPS];
@@ -196,15 +191,11 @@ pack_prescan_kernel(const uint32_t* __restrict__ bits, const int32_t* __restrict
   __shared__ u64 or_prefix;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  unsigned polls[2] = {0, 0};
-#ifdef GZP_PACK_PROBE
-  __shared__ long long stamp[7];
-#endif
-  PROBE_STAMP(0);
+  unsigned polls[2] = {0, 0};  // read by PACK_PROBE_POLLS only
 
   if (threadIdx.x == 0) tile_index = static_cast<int>(atomicAdd(counter, 1u));
   __syncthreads();
-  PROBE_STAMP(1);
+  PACK_PROBE(0);
   const int b = tile_index / tiles;
   const int tile = tile_index - b * tiles;
   const int t0 = tile * T;
@@ -251,7 +242,7 @@ pack_prescan_kernel(const uint32_t* __restrict__ bits, const int32_t* __restrict
   u64 tile_width;
   const int width_before = static_cast<int>(
       cta_exclusive_scan<WARPS>(static_cast<u64>(width), AddOp(), width_sums, tile_width));
-  PROBE_STAMP(2);
+  PACK_PROBE(1);
   if (warp == 0) {
     const u64 prefix =
         scan_tile(width_status, tile, tile_width, AddOp(), IsInclusive(), polls[0]);
@@ -270,7 +261,7 @@ pack_prescan_kernel(const uint32_t* __restrict__ bits, const int32_t* __restrict
     }
   }
   __syncthreads();
-  PROBE_STAMP(3);
+  PACK_PROBE(2);
 
   // ---- 2. bit phases, flushes, and each entry's c (in v)
   const int row_before = static_cast<int>(width_prefix);
@@ -337,13 +328,13 @@ pack_prescan_kernel(const uint32_t* __restrict__ bits, const int32_t* __restrict
   // ---- 4. segmented-OR prefix
   u64 tile_or;
   const u64 or_before = cta_exclusive_scan<WARPS>(agg, SegOrOp(), or_sums, tile_or);
-  PROBE_STAMP(4);
+  PACK_PROBE(3);
   if (warp == 0) {
     const u64 prefix = scan_tile(or_status, tile, tile_or, SegOrOp(), EndsOrPrefix(), polls[1]);
     if (lane == 0) or_prefix = prefix;
   }
   __syncthreads();
-  PROBE_STAMP(5);
+  PACK_PROBE(4);
 
   // ---- 5. values
   if (in_row) {
@@ -364,57 +355,32 @@ pack_prescan_kernel(const uint32_t* __restrict__ bits, const int32_t* __restrict
   if (tile == tiles - 1 && threadIdx.x == 0) {
     total_bits[b] = base_bits + row_before + static_cast<int>(tile_width);
   }
-#ifdef GZP_PACK_PROBE
-  PROBE_STAMP(6);
-  if (threadIdx.x == 0) {
-    u64* probe = status + 2 * static_cast<int64_t>(gridDim.x) + 1 +
-                 static_cast<int64_t>(tile_index) * PROBE_WORDS;
-    for (int i = 0; i < 6; ++i) probe[i] = static_cast<u64>(stamp[i + 1] - stamp[i]);
-    probe[6] = polls[0];
-    probe[7] = polls[1];
-  }
-#endif
-}
-
-template <int BLOCK>
-int launch(const void* bits, const void* nbits, void* key, void* val, void* total_bits,
-           void* scratch, int rows, int e, int ep, int base_bits, cudaStream_t stream) {
-  const int tiles = (ep + BLOCK * ITEMS - 1) / (BLOCK * ITEMS);
-  const size_t words = 2 * static_cast<size_t>(rows) * tiles + 1;
-  cudaError_t err = cudaMemsetAsync(scratch, 0, words * sizeof(u64), stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  u64* status = static_cast<u64*>(scratch);
-  pack_prescan_kernel<BLOCK><<<rows * tiles, BLOCK, 0, stream>>>(
-      static_cast<const uint32_t*>(bits), static_cast<const int32_t*>(nbits),
-      static_cast<uint32_t*>(key), static_cast<uint32_t*>(val),
-      static_cast<int32_t*>(total_bits), status,
-      reinterpret_cast<unsigned*>(status + words - 1), e, ep, tiles, base_bits);
-  return static_cast<int>(cudaGetLastError());
+  PACK_PROBE(5);
+  PACK_PROBE_POLLS(polls);
 }
 
 }  // namespace
 
 // bits [rows, e] u32; nbits [rows, e] i32 -> key, val [rows, ep] u32,
-// total_bits [rows] i32. `tile` entries per CTA (1024, 2048 or 4096: CTAs
-// of 128, 256 or 512 threads); `scratch` holds 2 * rows * ceil(ep / tile)
-// + 1 u64 words (16-byte aligned, like key and val), zeroed here (and
-// PROBE_WORDS more per tile in a probe build).
+// total_bits [rows] i32. `scratch` holds 2 * rows * ceil(ep / 4096) + 1
+// u64 words (16-byte aligned, like key and val), zeroed here.
 GZP_EXPORT int gzp_pack_prescan(const void* bits, const void* nbits, void* key, void* val,
                                 void* total_bits, void* scratch, int rows, int e, int ep,
-                                int base_bits, int tile, void* stream) {
+                                int base_bits, void* stream) {
   const bool aligned = ((reinterpret_cast<uintptr_t>(key) | reinterpret_cast<uintptr_t>(val) |
                          reinterpret_cast<uintptr_t>(scratch)) & 15) == 0;
   if (ep <= e || ep % 1024 != 0 || !aligned) return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (tile) {
-    case 1024:
-      return launch<128>(bits, nbits, key, val, total_bits, scratch, rows, e, ep, base_bits, s);
-    case 2048:
-      return launch<256>(bits, nbits, key, val, total_bits, scratch, rows, e, ep, base_bits, s);
-    case 4096:
-      return launch<512>(bits, nbits, key, val, total_bits, scratch, rows, e, ep, base_bits, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int tiles = (ep + T - 1) / T;
+  const size_t words = 2 * static_cast<size_t>(rows) * tiles + 1;
+  cudaError_t err = cudaMemsetAsync(scratch, 0, words * sizeof(u64), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  u64* status = static_cast<u64*>(scratch);
+  pack_prescan_kernel<<<rows * tiles, BLOCK, 0, s>>>(
+      static_cast<const uint32_t*>(bits), static_cast<const int32_t*>(nbits),
+      static_cast<uint32_t*>(key), static_cast<uint32_t*>(val),
+      static_cast<int32_t*>(total_bits), status,
+      reinterpret_cast<unsigned*>(status + words - 1), e, ep, tiles, base_bits);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -6,9 +6,9 @@ Counterpart of ``gzp_tpu/ops/pack_pallas.py``. K10
 entry's bit position, a segmented OR-scan over entries builds each output
 word, and the entry that completes a word carries its index as the key.
 The kernel splits each row into tiles and carries both prefixes across
-them with a decoupled look-back. :func:`pack_entries_sortscan_cuda` then places every keyed
-value at its word — the TPU sorts by key; the key is the destination
-index, so here it is a scatter with the same result.
+them with a decoupled look-back. :func:`pack_entries_sortscan_cuda` then
+places every keyed value at its word — the TPU sorts by key; the key is
+the destination index, so here it is a scatter with the same result.
 
 The wrapper runs the kernel for CUDA tensors and the plain PyTorch
 version for CPU tensors, and raises for a CUDA tensor it cannot launch on.
@@ -27,12 +27,10 @@ M32 = 0xFFFFFFFF
 
 PACK_PRESCAN = CudaKernel(
     "pack_prescan.cu", "gzp_pack_prescan",
-    [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32],
+    [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32],
 )
-# entries per CTA of K10: 8 per thread, 512 threads (1024 and 2048, CTAs of
-# 128 and 256 threads, also build)
+# entries per CTA of K10 (T in csrc/pack_prescan.cu: 512 threads x 8)
 PACK_TILE = 4096
-PACK_TILES = (1024, 2048, 4096)
 
 
 def prescan_len(e: int) -> int:
@@ -42,16 +40,12 @@ def prescan_len(e: int) -> int:
     return -(-rows // 8) * 8 * LANES
 
 
-def prescan_plan(rows: int, e: int, tile: int | None = None):
-    """K10's launch at ``rows`` x ``e`` entries: ``(T, tiles per row,
-    scratch u64 words)``, T = ``tile`` or, by default, ``PACK_TILE`` as it
-    stands at the call. The scratch holds a width and an OR status word per
-    tile and the tile counter (``csrc/pack_prescan.cu``)."""
-    tile = PACK_TILE if tile is None else tile
-    if tile not in PACK_TILES:
-        raise ValueError(f"tile={tile}: K10 builds {PACK_TILES}")
-    tiles = -(-prescan_len(e) // tile)
-    return tile, tiles, 2 * rows * tiles + 1
+def prescan_plan(rows: int, e: int):
+    """K10's launch at ``rows`` x ``e`` entries: ``(tiles per row, scratch
+    u64 words)``. The scratch holds a width and an OR status word per tile
+    and the tile counter (``csrc/pack_prescan.cu``)."""
+    tiles = -(-prescan_len(e) // PACK_TILE)
+    return tiles, 2 * rows * tiles + 1
 
 
 def pack_prescan_plain(bits: torch.Tensor, nbits: torch.Tensor, base_bits: int):
@@ -106,7 +100,7 @@ def pack_prescan_cuda(bits: torch.Tensor, nbits: torch.Tensor, base_bits: int):
     ep = prescan_len(e)
     check_cuda(bits, torch.int32, (b, e), "bits")
     check_cuda(nbits, torch.int32, (b, e), "nbits")
-    tile, _, words = prescan_plan(b, e)
+    _, words = prescan_plan(b, e)
     key = torch.empty((b, ep), dtype=torch.int32, device=bits.device)
     val = torch.empty((b, ep), dtype=torch.int32, device=bits.device)
     total_bits = torch.empty((b,), dtype=torch.int32, device=bits.device)
@@ -115,7 +109,7 @@ def pack_prescan_cuda(bits: torch.Tensor, nbits: torch.Tensor, base_bits: int):
         bits.device,
         ptr(bits.data_ptr()), ptr(nbits.data_ptr()), ptr(key.data_ptr()),
         ptr(val.data_ptr()), ptr(total_bits.data_ptr()), ptr(scratch.data_ptr()),
-        b, e, ep, base_bits, tile, stream_of(bits),
+        b, e, ep, base_bits, stream_of(bits),
     )
     return key, val, total_bits
 

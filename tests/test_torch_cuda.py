@@ -98,10 +98,8 @@ def test_pack_prescan_kernel(stages):
     _same(pack_cuda.pack_prescan_cuda(*args), pack_cuda.pack_prescan_plain(*args))
 
 
-@pytest.mark.parametrize("tile", pack_cuda.PACK_TILES)
-def test_pack_prescan_tiles(stages, tile, monkeypatch):
-    """The level-3 entries at each tile size the kernel builds."""
-    monkeypatch.setattr(pack_cuda, "PACK_TILE", tile)
+def test_pack_prescan_one_launch(stages):
+    """One ``pack_prescan_cuda`` call is one count of K10's launches."""
     args = (stages["bits"], stages["nbits"], 160)
     before = pack_cuda.PACK_PRESCAN.launches
     got = pack_cuda.pack_prescan_cuda(*args)

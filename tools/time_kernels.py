@@ -13,16 +13,15 @@ entries for the pack pre-scan K10; level 6's two candidate fields for the
 tail K9, its content-sorted words for K4 big-endian at lag 1 and its
 hash-sorted payloads for K4 little-endian at lags 1-2 (one call each).
 Holds each kernel against its plain version (exact), then times it: ``ms``
-is device time per call from CUDA-graph replay (``chip_smoke.graph_ms``),
-``call_ms`` CUDA events around back-to-back wrapper calls (which include
-the host's launch overhead once it exceeds the kernel's time); and reads
-the device memory one call allocates beyond its inputs and outputs (peak
-minus the outputs). With
-``--tiles`` it times each tile size a kernel of that checkout takes
-(``lz_cuda.TAIL_TILE`` for K6 and K9, ``pack_cuda.PACK_TILE`` for K10; K4's
-tile is fixed in its source). ``--ptxas`` prints the compiler's registers,
-spills and shared memory per function first. Prints one JSON line. Exits
-non-zero without a card or on a mismatch.
+is CUDA events around back-to-back wrapper calls (``chip_smoke.time_ms``,
+the ``ms`` of ``chip_smoke.py``'s kernels line), ``graph_ms`` device time
+per call from CUDA-graph replay (``chip_smoke.graph_ms``: the host's launch
+overhead left out); and reads the device memory one call allocates beyond
+its inputs and outputs (peak minus the outputs). With ``--tiles`` it times
+K6 and K9 at each tile size ``lz_cuda.TAIL_TILE`` takes in that checkout
+(K10's and K4's tiles are fixed in their sources). ``--ptxas`` prints the
+compiler's registers, spills and shared memory per function first. Prints
+one JSON line. Exits non-zero without a card or on a mismatch.
 """
 
 from __future__ import annotations
@@ -39,6 +38,44 @@ import torch
 
 HERE = Path(__file__).resolve().parent.parent
 B, N = 64, 131072
+TAIL_KW = dict(base=0, max_match=258, min_emit=3, lazy=True)
+
+
+def smoke_module():
+    """This repository's ``chip_smoke`` (corpus and timing helpers), not a
+    checkout's."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_here", HERE / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def batch(dev):
+    """The main paths' batch: 64 blocks of 128 KiB of bench text, block 1
+    all zero, block 2 random -> (data, lengths, halo)."""
+    text = np.frombuffer(smoke_module().make_corpus(B * N), np.uint8).reshape(B, N).copy()
+    text[1] = 0
+    text[2] = np.random.default_rng(7).integers(0, 256, N, dtype=np.uint8)
+    data = torch.from_numpy(text).to(dev)
+    lengths = torch.full((B,), N, dtype=torch.int32, device=dev)
+    halo = torch.zeros((B,), dtype=torch.int32, device=dev)
+    return data, lengths, halo
+
+
+def level3_entries(data, lengths, halo):
+    """K10's inputs on level 3's path: (bits, nbits, base_bits), and the
+    hash pass's candidates K6 takes."""
+    from gzp_tpu_torch.ops import deflate_kernel as dk
+    from gzp_tpu_torch.ops import lz_cuda
+
+    packed3 = lz_cuda.hash_pass(data, halo, payload_words=3, lags=2, max_dist=32768)
+    cfg = dk.DeflateEncodeConfig.for_level(N, "mgzip", "none", 3)
+    ml, md = lz_cuda.match_tail_cuda(data, packed3, lengths, halo, payload_bytes=12,
+                                     **TAIL_KW)
+    marked, ln = dk.parse_stage(cfg, ml, lengths)
+    bits, nbits = dk.block_entries(cfg, data, marked, ln, md)
+    return (bits.to(torch.int32).contiguous(), nbits.to(torch.int32).contiguous(),
+            8 * cfg.header_len), packed3
 
 
 def main() -> int:
@@ -55,18 +92,13 @@ def main() -> int:
         return 1
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
-    from gzp_tpu_torch.ops import deflate_kernel as dk
     from gzp_tpu_torch.ops import lz_cuda, pack_cuda
     from gzp_tpu_torch.ops.lz import _pos_bits
     from gzp_tpu_torch.runtime import cuda_lib
 
     if Path(lz_cuda.__file__).resolve().parents[2] != root:
         raise AssertionError(f"imported {lz_cuda.__file__}, not from {root}")
-    # this repository's chip_smoke (the timing helpers), not the checkout's
-    spec = importlib.util.spec_from_file_location("chip_smoke_here", HERE / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    make_corpus, graph_ms, time_ms = smoke.make_corpus, smoke.graph_ms, smoke.time_ms
+    smoke = smoke_module()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -80,36 +112,22 @@ def main() -> int:
             for line in log.splitlines():
                 if "Compiling entry" in line or "Used" in line or "spill" in line:
                     print(f"  {name}: {line.strip()[-150:]}", flush=True)
-    dev = torch.device("cuda", 0)
-    text = np.frombuffer(make_corpus(B * N), np.uint8).reshape(B, N).copy()
-    text[1] = 0
-    text[2] = np.random.default_rng(7).integers(0, 256, N, dtype=np.uint8)
-    data = torch.from_numpy(text).to(dev)
-    lengths = torch.full((B,), N, dtype=torch.int32, device=dev)
-    halo = torch.zeros((B,), dtype=torch.int32, device=dev)
+    data, lengths, halo = batch(torch.device("cuda", 0))
     wanted = [k for k in args.kernels.split(",") if k]
-    tail_kw = dict(base=0, max_match=258, min_emit=3, lazy=True)
-    cases = {}  # name: (kernel, plain, args, kwargs, (module, tile attribute) or None)
+    cases = {}  # name: (kernel, plain, args, kwargs, takes lz_cuda.TAIL_TILE)
     if {"K6", "K10"} & set(wanted):
-        packed3 = lz_cuda.hash_pass(data, halo, payload_words=3, lags=2, max_dist=32768)
+        pack_args, packed3 = level3_entries(data, lengths, halo)
         cases["K6"] = (lz_cuda.match_tail_cuda, lz_cuda.match_tail_plain,
-                       (data, packed3, lengths, halo), dict(tail_kw, payload_bytes=12),
-                       (lz_cuda, "TAIL_TILE"))
-        cfg = dk.DeflateEncodeConfig.for_level(N, "mgzip", "none", 3)
-        ml, md = lz_cuda.match_tail_cuda(data, packed3, lengths, halo, payload_bytes=12,
-                                         **tail_kw)
-        marked, ln = dk.parse_stage(cfg, ml, lengths)
-        bits, nbits = dk.block_entries(cfg, data, marked, ln, md)
-        cases["K10"] = (pack_cuda.pack_prescan_cuda, pack_cuda.pack_prescan_plain,
-                        (bits.to(torch.int32).contiguous(), nbits.to(torch.int32).contiguous(),
-                         8 * cfg.header_len), {}, (pack_cuda, "PACK_TILE"))
+                       (data, packed3, lengths, halo), dict(TAIL_KW, payload_bytes=12), True)
+        cases["K10"] = (pack_cuda.pack_prescan_cuda, pack_cuda.pack_prescan_plain, pack_args,
+                        {}, False)
     if "K9" in wanted:
         packed_s = lz_cuda.suffix_pass(data, halo, payload_words=7, lags=16, suffix_keys=5,
                                        max_dist=32768)
         packed_h = lz_cuda.hash_pass(data, halo, payload_words=7, lags=2, max_dist=32768)
         cases["K9"] = (lz_cuda.match_tail2_cuda, lz_cuda.match_tail2_plain,
-                       (data, packed_h, packed_s, lengths, halo), dict(tail_kw, payload_bytes=28),
-                       (lz_cuda, "TAIL_TILE"))
+                       (data, packed_h, packed_s, lengths, halo), dict(TAIL_KW, payload_bytes=28),
+                       True)
     if "K4" in wanted:
         keys, pos = lz_cuda.build_suffix_keys_cuda(data, payload_words=7)
         order = lz_cuda.suffix_order(keys, pos, 5)
@@ -118,23 +136,20 @@ def main() -> int:
         horder = torch.sort(key.to(torch.int64) & 0xFFFFFFFF, dim=1).indices
         spays = torch.gather(pays, 2, horder.expand(7, -1, -1))
         cases["K4 be lag 1"] = (lz_cuda.lcp_lags_cuda, lz_cuda.lcp_lags_plain, (skeys, 1),
-                                dict(big_endian=True), None)
+                                dict(big_endian=True), False)
         cases["K4 le lags 1-2"] = (lz_cuda.lcp_lags_cuda, lz_cuda.lcp_lags_plain, (spays, 2),
-                                   dict(big_endian=False), None)
+                                   dict(big_endian=False), False)
     tiles = [int(t) for t in args.tiles.split(",") if t]
     out = {"root": str(root), "device": torch.cuda.get_device_name(0), "smi": smi}
-    for name, (kernel, plain, kargs, kw, knob) in cases.items():
+    default_tile = getattr(lz_cuda, "TAIL_TILE", None)
+    for name, (kernel, plain, kargs, kw, tiled) in cases.items():
         if name.split()[0] not in wanted:
             continue
-        sizes = [None]
-        if tiles and knob is not None and hasattr(*knob):
-            allowed = getattr(knob[0], "PACK_TILES", None) if knob[1] == "PACK_TILE" else None
-            sizes = [t for t in tiles if allowed is None or t in allowed] or [None]
-        default = getattr(*knob) if knob is not None and hasattr(*knob) else None
+        sizes = tiles if tiles and tiled and default_tile is not None else [None]
         row = {}
         for tile in sizes:
             if tile is not None:
-                setattr(knob[0], knob[1], tile)
+                lz_cuda.TAIL_TILE = tile
             got = kernel(*kargs, **kw)
             want = plain(*kargs, **kw)
             got = got if isinstance(got, tuple) else (got,)
@@ -149,11 +164,12 @@ def main() -> int:
             kernel(*kargs, **kw)
             torch.cuda.synchronize()
             scratch = torch.cuda.max_memory_allocated() - base - out_bytes
-            ms = graph_ms(lambda: kernel(*kargs, **kw), iters=args.iters)
-            call_ms = time_ms(lambda: kernel(*kargs, **kw), iters=args.iters, warmup=3)
-            row[str(tile or "default")] = {"ms": ms, "call_ms": call_ms, "scratch_bytes": scratch}
-        if default is not None:
-            setattr(knob[0], knob[1], default)
+            ms = smoke.time_ms(lambda: kernel(*kargs, **kw), iters=args.iters, warmup=3)
+            replay_ms = smoke.graph_ms(lambda: kernel(*kargs, **kw), iters=args.iters)
+            row[str(tile or "default")] = {"ms": ms, "graph_ms": replay_ms,
+                                           "scratch_bytes": scratch}
+        if default_tile is not None:
+            lz_cuda.TAIL_TILE = default_tile
         out[name] = row
     print(json.dumps(out), flush=True)
     return 0
