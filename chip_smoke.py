@@ -13,14 +13,17 @@ Phases (any failure raises and exits non-zero; no result line then):
              its plain PyTorch version on the card (exact equality on
              every output) and timed beside its bound (CUDA events call
              by call, and device time from CUDA-graph replay beside it):
-             K1, K2 (and K3's function), K6 and K10 at level 3's config,
-             then K7, K4, K8, K1, K5 and K9 at level 6's (K8 also at
-             level 9's 24 lags), with a stage split per level; K6 also
-             at level 1's 8 context bytes (its widest window), and K6
-             and K9 on rows built for their tile and window edges
+             K1, K2 (and K3's function, at lags 4), K6 and K10 at level
+             3's config, then K7, K4, K8, K1, K5 and K9 at level 6's (K8
+             also at level 9's 24 lags), with a stage split per level;
+             K2 also on rows built for its lags halo
+             (``neighbor_edge_batch``, lags 1, 2, 4 and 127), K6 also at
+             level 1's 8 context bytes (its widest window), and K6 and
+             K9 on rows built for their tile and window edges
              (``tail_edge_batch``), held but not timed; K10 also on rows
              built for its look-back (``pack_edge_batch``), held but not
-             timed; K10's and K4's tile, grid, scratch and shared memory;
+             timed; K2's, K10's and K4's tile, grid, halo or scratch, and
+             shared memory;
 4. paths   — 256 MiB of text through ``ZBuilder(Mgzip)`` on the card at
              level 3, then at level 6; for each, gzip must restore it,
              every kernel of the path must have been launched, the first
@@ -213,6 +216,24 @@ def smem_bytes(library: str, function: str) -> int:
     raise AssertionError(f"no ptxas report for {function} in {library}")
 
 
+def neighbor_edges(dev):
+    """K2 on its halo's edge rows at lags 1, 2, 4 and 127, 1-3 context
+    words, at Np = N - 1000 (a ragged last tile, 16-byte loads) and at
+    5T + 123 (not a multiple of 4: scalar loads)."""
+    from gzp_tpu_torch.ops import lz_cuda
+    from gzp_tpu_torch.utils.testing import NEIGHBOR_KINDS, neighbor_edge_batch
+
+    t = lz_cuda.NEIGHBOR_TILE
+    for lags in (1, 2, 4, 127):
+        for npad, pw in ((N - 1000, 3), (5 * t + 123, 1 + lags % 3)):
+            x = neighbor_edge_batch(NEIGHBOR_KINDS * 4, npad, tile=t, lags=lags,
+                                    payload_words=pw, max_dist=32768, seed=lags)
+            check(f"K2 neighbor edge rows lags={lags} Np={npad} pw={pw}", lz_cuda.neighbor_cuda,
+                  lz_cuda.neighbor_plain,
+                  tuple(torch.from_numpy(x[k]).to(dev) for k in ("sk", "pays", "halo_start")),
+                  dict(pos_bits=x["pos_bits"], lags=lags, max_dist=32768))
+
+
 def pack_edges(dev, base_bits):
     """K10 on the look-back's edge rows at its tile T: E = 5T + 123 (a
     ragged last tile), 4T (the tail entry first in its tile), T - 37."""
@@ -272,6 +293,15 @@ def level3_kernels(data, lengths, halo):
         nbytes=nb_k2, nops=B * npad * 4 * (10 + 4 * pw),
         source=SRC + "neighbor.cu", replaces=PALLAS + "256",
     )
+    t = lz_cuda.NEIGHBOR_TILE
+    for lg in (lags, 4):
+        halo_bytes = B * -(-npad // t) * lg * (8 + 4 * pw)
+        print(f"  K2 plan at lags {lg}: T {t} slots per CTA of 256 threads ({t // 256} each); grid "
+              f"({-(-npad // t)}, {B}); halo {lg} slots per tile, re-read {halo_bytes} B "
+              f"({halo_bytes / (B * npad * (8 + 4 * pw)):.4f} of the input, beside the bound); "
+              f"dynamic shared memory {lz_cuda.neighbor_smem_bytes(pw, lg)} B per CTA",
+              flush=True)
+    neighbor_edges(data.device)
     packed_pos = torch.empty_like(packed).scatter_(1, sp.to(torch.int64), packed)
     (ml, md), rows["K6"] = hold(
         "K6 match_tail", lz_cuda.match_tail_cuda, lz_cuda.match_tail_plain,

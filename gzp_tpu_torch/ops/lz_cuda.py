@@ -52,6 +52,10 @@ NEIGHBOR = CudaKernel(
 )
 # K2's kernel at lags > 2 computes the TPU's K3 (`_neighbor_loop_kernel`)
 NEIGHBOR_LOOP = LaunchCount("neighbor_loop")
+# slots per CTA of K2: TILE in csrc/neighbor.cu (256 threads x 4 slots), and
+# the most lags its halo takes (the reference asserts lags < 128)
+NEIGHBOR_TILE = 1024
+NEIGHBOR_MAX_LAGS = 127
 MATCH_TAIL = CudaKernel(
     "match_tail.cu", "gzp_match_tail",
     [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32],
@@ -214,12 +218,22 @@ def neighbor_plain(sk, pays, halo_start, *, pos_bits: int, lags: int, max_dist: 
     return sp.to(torch.int32), _pack(ls, ds, cs)
 
 
+def neighbor_smem_bytes(payload_words: int, lags: int) -> int:
+    """Dynamic shared memory per CTA of K2, as ``smem_bytes`` in
+    ``csrc/neighbor.cu`` computes it: the key plane and ``payload_words``
+    word planes over the tile and a halo of ``lags`` rounded up to 4
+    slots."""
+    return 4 * (-(-lags // 4) * 4 + NEIGHBOR_TILE) * (1 + payload_words)
+
+
 def neighbor_cuda(sk, pays, halo_start, *, pos_bits: int, lags: int, max_dist: int):
     """Best recency candidate of every hash-sorted slot; same contract as
     :func:`neighbor_plain`. Up to 3 context words it is K2 (see
-    ``csrc/neighbor.cu``; ``lags`` > 2 is the TPU's K3). Wider context
-    (the suffix matcher's hash pass) takes the route ``neighbor_pallas``
-    takes there: K4 (one launch for every lag), then K5."""
+    ``csrc/neighbor.cu``: tiles of ``NEIGHBOR_TILE`` slots with a halo of
+    ``lags`` ≤ 127 slots, grid (ceil(Np / tile), B); ``lags`` > 2 is the
+    TPU's K3). Wider context (the suffix matcher's hash pass) takes the
+    route ``neighbor_pallas`` takes there: K4 (one launch for every lag),
+    then K5."""
     pw = pays.shape[0]
     if pw > 3:
         lcps = lcp_lags_cuda(pays, lags, big_endian=False)
@@ -229,8 +243,9 @@ def neighbor_cuda(sk, pays, halo_start, *, pos_bits: int, lags: int, max_dist: i
         return neighbor_plain(sk, pays, halo_start, pos_bits=pos_bits, lags=lags,
                               max_dist=max_dist)
     b, npad = sk.shape
-    if lags < 1 or pw < 1:
-        raise ValueError(f"lags={lags}, payload_words={pw}")
+    if not 1 <= lags <= NEIGHBOR_MAX_LAGS or pw < 1:
+        raise ValueError(f"lags={lags}, payload_words={pw}: the kernel's halo holds "
+                         f"{NEIGHBOR_MAX_LAGS} slots")
     check_cuda(sk, torch.int64, (b, npad), "sk")
     check_cuda(pays, torch.int32, (pw, b, npad), "pays")
     check_cuda(halo_start, torch.int32, (b,), "halo_start")

@@ -1,6 +1,7 @@
 """Inputs that put the tile-parallel kernels' cross-tile arguments at their
-edges: the match tails' window (:func:`tail_edge_batch`) and the pack
-pre-scan's look-back (:func:`pack_edge_batch`).
+edges: the match tails' window (:func:`tail_edge_batch`), the pack
+pre-scan's look-back (:func:`pack_edge_batch`) and the sorted-neighbour
+kernel's lags halo (:func:`neighbor_edge_batch`).
 
 The tails K6 and K9 (``ops/lz_cuda.py``) run one CTA per tile of T
 positions and saturate distance-1 runs at R (``lz_cuda.tail_window``).
@@ -21,6 +22,8 @@ from gzp_tpu_torch.ops.lz_cuda import padded_len, tail_window
 
 KINDS = ("edge_runs", "period3", "period37", "period300", "run_vs_suffix", "random")
 PACK_KINDS = ("long_segment", "zero_tiles", "tile_end_flush", "straddle31", "random")
+NEIGHBOR_KINDS = ("bucket_edge", "row_start", "limits", "ties", "capped", "byte_diff",
+                  "random")
 
 
 def _words(rng, shape, payload_bytes: int) -> np.ndarray:
@@ -171,3 +174,138 @@ def pack_edge_batch(kinds, e: int, *, tile: int, base_bits: int = 0, seed: int =
     values = rng.integers(1 << 30, 1 << 31, nbits.shape)  # top bits set: nonzero hi
     bits = np.where(ones, 1, values & ((1 << nbits) - 1))
     return bits.astype(np.uint32), nbits.astype(np.int32)
+
+
+def _prefix_ctx(rng, base: np.ndarray, lcp: np.ndarray) -> np.ndarray:
+    """Context bytes [n, pb] equal to ``base`` [pb] before byte ``lcp[j]``,
+    different at it (where it is < pb) and random after it."""
+    n, pb = len(lcp), len(base)
+    col = np.arange(pb)[None, :]
+    out = np.where(col < lcp[:, None], base[None, :], rng.integers(0, 256, (n, pb)))
+    flip = rng.integers(1, 256, n)
+    at = col == lcp[:, None]
+    out = np.where(at, base[None, :] ^ flip[:, None], out)
+    return out.astype(np.uint8)
+
+
+def neighbor_edge_batch(kinds, npad: int, *, tile: int, lags: int, payload_words: int,
+                        max_dist: int, seed: int = 0) -> dict:
+    """One row per entry of ``kinds`` (names from :data:`NEIGHBOR_KINDS`) of
+    ``npad`` hash-sorted slots for the sorted-neighbour kernel K2, whose
+    CTAs take tiles of ``tile`` slots with a halo of ``lags`` -> numpy
+    ``sk`` [rows, npad] int64 (u32 keys ``hash << pos_bits | pos``),
+    ``pays`` [pw, rows, npad] int32 (u32 context words, little-endian),
+    ``halo_start`` [rows] int32, ``pos_bits`` (room for positions up to
+    past ``max_dist``) and ``sites``, the (row, first slot, slots) of every
+    bucket a kind built.
+
+    The row is buckets of equal hash (about 1 in 3 slots starts one while
+    the hash bits allow), positions ascending within each, contexts sharing
+    a random prefix with the bucket's; then by kind:
+
+    * ``bucket_edge``: a bucket over [e - lags - 3, e + 8) at every tile
+      edge e short of the row's last bucket, where slot e and slot e - lags carry the bucket's whole
+      context and every other slot a shorter prefix, so slot e's best
+      candidate is exactly ``lags`` back, in the tile before;
+    * ``row_start``: one bucket over the row's first lags + 4 slots, all
+      capped, with the hash, context and lower positions of every other
+      row's last bucket (a read across the row start would find them);
+    * ``limits``: pairs at the source position halo_start and one below,
+      at distance ``max_dist`` and one past, at distance 0 and -1;
+    * ``ties``: buckets of 5 slots in shuffled position order whose
+      contexts all share the same prefix: the nearest must win;
+    * ``capped``: buckets of 6 slots of one whole context;
+    * ``byte_diff``: pairs differing in one byte, every byte of every word
+      in turn;
+    * ``random``: the base row.
+
+    Odd rows other than ``row_start``, and ``limits`` rows, get
+    ``halo_start`` > 0. ``npad`` need not be a multiple of ``tile`` or of
+    4."""
+    pb = 4 * payload_words
+    pos_bits = max((npad - 1).bit_length(), (max_dist + 1).bit_length() + 1)
+    pmax = (1 << pos_bits) - 2
+    hm = 1 << (31 - pos_bits)  # every row's last bucket; row_start rows above it
+    rng = np.random.default_rng(seed)
+    rows = len(kinds)
+    shared = rng.integers(0, 256, pb).astype(np.uint8)
+    tail = min(8, npad)
+    sk = np.empty((rows, npad), np.int64)
+    ctx = np.empty((rows, npad, pb), np.uint8)
+    halo = np.zeros(rows, np.int32)
+    built = []
+    for i, kind in enumerate(kinds):
+        if kind not in NEIGHBOR_KINDS:
+            raise ValueError(f"unknown kind {kind!r}; expected one of {NEIGHBOR_KINDS}")
+        size = dict(limits=2, ties=5, capped=6, byte_diff=2).get(kind)
+        sites = []  # (first slot, slots): buckets the kind fills itself
+        edges = list(range(tile, npad - tail - 8, tile)) if kind == "bucket_edge" else []
+        if edges:
+            sites = [(max(e - lags - 3, 0), min(e + 8, npad) - max(e - lags - 3, 0))
+                     for e in edges]
+        elif kind == "row_start":
+            sites = [(0, min(lags + 4, npad))]
+        elif size:
+            step = max(size + 3, npad // 512)
+            sites = [(a, size) for a in range(1, npad - tail - size - 1, step)]
+        built += [(i, a, n) for a, n in sites]
+        if kind != "row_start":
+            sites.append((npad - tail, tail))
+        start = rng.random(npad) < min(0.35, 0.5 * (hm - 2) / npad)
+        start[0] = True
+        for a, n in sites:
+            start[a] = True
+            start[a + 1: a + n] = False
+            if a + n < npad:
+                start[a + n] = True
+        bucket = np.cumsum(start) - 1
+        nb = int(bucket[-1]) + 1
+        assert nb <= hm - 2, (nb, hm)
+        first = np.flatnonzero(start)
+        base = rng.integers(0, 256, (nb, pb)).astype(np.uint8)
+        c = _prefix_ctx(rng, np.zeros(pb, np.uint8), rng.integers(0, pb + 1, npad))
+        c ^= base[bucket]  # a prefix of the bucket's context
+        inc = np.cumsum(rng.integers(1, 61, npad))
+        pos = rng.integers(0, pmax // 2, nb)[bucket] + inc - inc[first][bucket]
+        lo = (pmax + 2) // 4
+        for q, (a, n) in enumerate(sites):
+            s = slice(a, a + n)
+            bk = base[bucket[a]]
+            if a == npad - tail and kind != "row_start":
+                c[s], pos[s] = shared, np.arange(n)
+            elif kind == "bucket_edge":
+                c[s] = _prefix_ctx(rng, bk, rng.integers(0, pb, n))
+                c[edges[q]] = c[max(edges[q] - lags, 0)] = bk
+            elif kind == "row_start":
+                c[s], pos[s] = shared, 8 + np.arange(n)
+            elif kind == "limits":
+                p = lo + 10
+                pos[s] = [(lo, lo + 1), (lo - 1, lo + 1), (p, p + max_dist),
+                          (p, p + max_dist + 1), (p, p), (p + 1, p)][q % 6]
+                c[s] = bk
+            elif kind == "ties":
+                pos[s] = pos[a] + rng.permutation([0, 3, 7, 12, 20])
+                cut = pb // 2 + 1
+                c[s] = _prefix_ctx(rng, bk, np.full(n, cut))
+                c[s, cut] = bk[cut] ^ np.arange(1, n + 1)
+            elif kind == "capped":
+                c[s] = bk
+            elif kind == "byte_diff":
+                c[s] = bk
+                c[a + 1, q % pb] ^= rng.integers(1, 256)
+        pos = np.clip(pos, 0, pmax)
+        if kind == "row_start":
+            h = hm + 1 + (np.arange(nb) * (hm - 3)) // nb
+            h[0] = hm
+        else:
+            h = 1 + (np.arange(nb) * (hm - 2)) // nb
+            h[-1] = hm
+        sk[i] = (h[bucket] << pos_bits) | pos
+        ctx[i] = c
+        if kind == "limits":
+            halo[i] = lo
+        elif i % 2 == 1 and kind != "row_start":
+            halo[i] = int(np.quantile(pos, 0.25))
+    pays = ctx.view("<u4").transpose(2, 0, 1).view(np.int32)
+    return dict(sk=sk, pays=np.ascontiguousarray(pays), halo_start=halo, pos_bits=pos_bits,
+                sites=built)

@@ -1,7 +1,8 @@
 """Each CUDA kernel against its plain PyTorch version, on the card, at the
 main paths' full width (64 blocks of 128 KiB; level 3's config for K1, K2,
-K6 and K10, level 6's for K4, K5, K7, K8 and K9), the tails K6 and K9 on
-rows built to sit at the edges of their tiles and windows, the pack
+K6 and K10, level 6's for K4, K5, K7, K8 and K9), K2 also over 1-3 context
+words and lags 1-127 and on rows built for its lags halo, the tails K6 and
+K9 on rows built to sit at the edges of their tiles and windows, the pack
 pre-scan K10 on rows built for its look-back, and the LCP ladder K4 over
 every word count, lags 1-3 and both byte orders at row lengths that are
 not a multiple of its tile.
@@ -22,7 +23,9 @@ from gzp_tpu_torch import Mgzip, ZBuilder
 from gzp_tpu_torch.ops import deflate_kernel as dk
 from gzp_tpu_torch.ops import lz_cuda, pack_cuda
 from gzp_tpu_torch.ops.lz import _pos_bits
-from gzp_tpu_torch.utils.testing import KINDS, PACK_KINDS, pack_edge_batch, tail_edge_batch
+from gzp_tpu_torch.utils.testing import (
+    KINDS, NEIGHBOR_KINDS, PACK_KINDS, neighbor_edge_batch, pack_edge_batch, tail_edge_batch,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -75,9 +78,12 @@ def test_build_keys_kernel(stages):
           lz_cuda.build_keys_plain(stages["data"], **kw))
 
 
-@pytest.mark.parametrize("lags", [2, 4])
-def test_neighbor_kernel(stages, lags):
-    args = (stages["sk"], stages["spays"], stages["halo"])
+@pytest.mark.parametrize("lags", [1, 2, 3, 4, 16, 127])
+@pytest.mark.parametrize("pw", [1, 2, 3])
+def test_neighbor_kernel(stages, pw, lags):
+    """K2 on level 3's hash-sorted text at 1-3 context words (the first pw
+    planes of level 3's three: K1's words do not depend on pw)."""
+    args = (stages["sk"], stages["spays"][:pw].contiguous(), stages["halo"])
     kw = dict(pos_bits=_pos_bits(N), lags=lags, max_dist=32768)
     before = (lz_cuda.NEIGHBOR.launches, lz_cuda.NEIGHBOR_LOOP.launches)
     got = lz_cuda.neighbor_cuda(*args, **kw)
@@ -85,6 +91,37 @@ def test_neighbor_kernel(stages, lags):
     assert (lz_cuda.NEIGHBOR.launches - before[0],
             lz_cuda.NEIGHBOR_LOOP.launches - before[1]) == (1, int(lags > 2))
     _same(got, lz_cuda.neighbor_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("max_dist", [32768, 37])
+@pytest.mark.parametrize("npad", [N - 1000, 5 * lz_cuda.NEIGHBOR_TILE + 123],
+                         ids=["ragged", "scalar-loads"])
+@pytest.mark.parametrize("lags", [1, 2, 4, 127])
+def test_neighbor_at_tile_edges(stages, lags, npad, max_dist):
+    """Hash buckets across tile edges whose best candidate is exactly lags
+    back, a row's first slots, candidates at halo_start and max_dist and
+    one past each, ties, capped pairs and every byte of every word
+    (``neighbor_edge_batch``), at a ragged last tile; Np = N - 1000 takes
+    16-byte loads, 5T + 123 (not a multiple of 4) scalar ones."""
+    for pw in (1, 2, 3):
+        x = neighbor_edge_batch(NEIGHBOR_KINDS * 4, npad, tile=lz_cuda.NEIGHBOR_TILE, lags=lags,
+                                payload_words=pw, max_dist=max_dist, seed=npad + lags + pw)
+        dev = stages["data"].device
+        args = [torch.from_numpy(x[k]).to(dev) for k in ("sk", "pays", "halo_start")]
+        kw = dict(pos_bits=x["pos_bits"], lags=lags, max_dist=max_dist)
+        before = lz_cuda.NEIGHBOR.launches
+        got = lz_cuda.neighbor_cuda(*args, **kw)
+        assert lz_cuda.NEIGHBOR.launches == before + 1
+        _same(got, lz_cuda.neighbor_plain(*args, **kw))
+
+
+def test_neighbor_refuses_lags_past_its_halo(stages):
+    args = (stages["sk"], stages["spays"], stages["halo"])
+    before = lz_cuda.NEIGHBOR.launches
+    for lags in (0, lz_cuda.NEIGHBOR_MAX_LAGS + 1):
+        with pytest.raises(ValueError, match="lags"):
+            lz_cuda.neighbor_cuda(*args, pos_bits=_pos_bits(N), lags=lags, max_dist=32768)
+    assert lz_cuda.NEIGHBOR.launches == before
 
 
 def test_match_tail_kernel(stages):

@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
 """Time this package's redesigned kernels of one checkout of gzp_tpu_torch on a card.
 
-    python3 tools/time_kernels.py [--root DIR] [--kernels K6,K9,K10,K4] \
+    python3 tools/time_kernels.py [--root DIR] [--kernels K2,K3,K6,K9,K10,K4,K2pw7] \
         [--tiles 2048,4096,8192] [--iters 20]
 
 Imports ``gzp_tpu_torch`` from ``--root`` (default: this repository), so
 two checkouts can be compared in one call on one card (parent, change,
 change, parent). Makes the main paths' inputs at 64 blocks of 128 KiB of
 bench text (``chip_smoke.make_corpus``, seed 1234) with that checkout's
-own code: level 3's position-order candidates for the tail K6 and its bit
-entries for the pack pre-scan K10; level 6's two candidate fields for the
-tail K9, its content-sorted words for K4 big-endian at lag 1 and its
-hash-sorted payloads for K4 little-endian at lags 1-2 (one call each).
+own code: level 3's hash-sorted keys and payloads for the sorted-neighbour
+kernel K2 at lags 2 and K3's function (the same kernel) at lags 4, its
+position-order candidates for the tail K6 and its bit entries for the pack
+pre-scan K10; level 6's two candidate fields for the tail K9, its
+content-sorted words for K4 big-endian at lag 1 and its hash-sorted
+payloads for K4 little-endian at lags 1-2 (one call each). ``K2pw7`` times
+``csrc/neighbor.cu`` launched directly on level 6's hash-sorted keys and 7
+payload words at lags 2 beside the route ``neighbor_cuda`` takes there (K4
++ K5), both held against ``neighbor_plain``.
 Holds each kernel against its plain version (exact), then times it: ``ms``
 is CUDA events around back-to-back wrapper calls (``chip_smoke.time_ms``,
 the ``ms`` of ``chip_smoke.py``'s kernels line), ``graph_ms`` device time
@@ -19,7 +24,7 @@ per call from CUDA-graph replay (``chip_smoke.graph_ms``: the host's launch
 overhead left out); and reads the device memory one call allocates beyond
 its inputs and outputs (peak minus the outputs). With ``--tiles`` it times
 K6 and K9 at each tile size ``lz_cuda.TAIL_TILE`` takes in that checkout
-(K10's and K4's tiles are fixed in their sources). ``--ptxas`` prints the
+(K2's, K10's and K4's tiles are fixed in their sources). ``--ptxas`` prints the
 compiler's registers, spills and shared memory per function first. Prints
 one JSON line. Exits non-zero without a card or on a mismatch.
 """
@@ -78,10 +83,36 @@ def level3_entries(data, lengths, halo):
             8 * cfg.header_len), packed3
 
 
+def hash_sorted(data, pos_bits, pw):
+    """K1's keys and ``pw`` payload words in hash order, as ``hash_pass``
+    makes them -> (sk [B, Np] int64, payloads [pw, B, Np] int32)."""
+    from gzp_tpu_torch.ops import lz_cuda
+
+    key, pays = lz_cuda.build_keys_cuda(data, pos_bits=pos_bits, payload_words=pw)
+    sk, order = torch.sort(key.to(torch.int64) & 0xFFFFFFFF, dim=1)
+    return sk, torch.gather(pays, 2, order.expand(pw, -1, -1)).contiguous()
+
+
+def neighbor_launch(sk, pays, halo_start, *, pos_bits, lags, max_dist):
+    """``csrc/neighbor.cu`` at any word count (``neighbor_cuda`` routes more
+    than 3 words to K4 + K5): one launch, outputs as ``neighbor_plain``."""
+    from gzp_tpu_torch.ops import lz_cuda
+    from gzp_tpu_torch.runtime.cuda_lib import ptr, stream_of
+
+    b, npad = sk.shape
+    sp = torch.empty((b, npad), dtype=torch.int32, device=sk.device)
+    packed = torch.empty((b, npad), dtype=torch.int32, device=sk.device)
+    lz_cuda.NEIGHBOR.launch(
+        sk.device, ptr(sk.data_ptr()), ptr(pays.data_ptr()), ptr(halo_start.data_ptr()),
+        ptr(sp.data_ptr()), ptr(packed.data_ptr()), b, npad, pos_bits, pays.shape[0], lags,
+        max_dist, stream_of(sk))
+    return sp, packed
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE))
-    ap.add_argument("--kernels", default="K6,K9,K10,K4")
+    ap.add_argument("--kernels", default="K2,K3,K6,K9,K10,K4")
     ap.add_argument("--tiles", default="")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--ptxas", action="store_true",
@@ -107,7 +138,8 @@ def main() -> int:
     cuda_lib.build()
     if args.ptxas:
         libs = [k for k in cuda_lib.registered()
-                if k.name in ("match_tail", "match_tail2", "pack_prescan", "lcp_lags")]
+                if k.name in ("neighbor", "match_tail", "match_tail2", "pack_prescan",
+                              "lcp_lags")]
         for name, log in cuda_lib.build(libs, force=True, ptxas_verbose=True).items():
             for line in log.splitlines():
                 if "Compiling entry" in line or "Used" in line or "spill" in line:
@@ -115,6 +147,19 @@ def main() -> int:
     data, lengths, halo = batch(torch.device("cuda", 0))
     wanted = [k for k in args.kernels.split(",") if k]
     cases = {}  # name: (kernel, plain, args, kwargs, takes lz_cuda.TAIL_TILE)
+    pos_bits = _pos_bits(N)
+    if {"K2", "K3"} & set(wanted):
+        sk, spays = hash_sorted(data, pos_bits, 3)
+        for kid, lags in (("K2", 2), ("K3", 4)):
+            cases[kid] = (lz_cuda.neighbor_cuda, lz_cuda.neighbor_plain, (sk, spays, halo),
+                          dict(pos_bits=pos_bits, lags=lags, max_dist=32768), False)
+    if "K2pw7" in wanted:
+        sk7, spays7 = hash_sorted(data, pos_bits, 7)
+        kw = dict(pos_bits=pos_bits, lags=2, max_dist=32768)
+        cases["K2pw7 neighbor.cu"] = (neighbor_launch, lz_cuda.neighbor_plain,
+                                      (sk7, spays7, halo), kw, False)
+        cases["K2pw7 K4+K5 route"] = (lz_cuda.neighbor_cuda, lz_cuda.neighbor_plain,
+                                      (sk7, spays7, halo), kw, False)
     if {"K6", "K10"} & set(wanted):
         pack_args, packed3 = level3_entries(data, lengths, halo)
         cases["K6"] = (lz_cuda.match_tail_cuda, lz_cuda.match_tail_plain,
@@ -132,9 +177,7 @@ def main() -> int:
         keys, pos = lz_cuda.build_suffix_keys_cuda(data, payload_words=7)
         order = lz_cuda.suffix_order(keys, pos, 5)
         skeys = torch.gather(keys, 2, order.expand(7, -1, -1))
-        key, pays = lz_cuda.build_keys_cuda(data, pos_bits=_pos_bits(N), payload_words=7)
-        horder = torch.sort(key.to(torch.int64) & 0xFFFFFFFF, dim=1).indices
-        spays = torch.gather(pays, 2, horder.expand(7, -1, -1))
+        _, spays = hash_sorted(data, pos_bits, 7)
         cases["K4 be lag 1"] = (lz_cuda.lcp_lags_cuda, lz_cuda.lcp_lags_plain, (skeys, 1),
                                 dict(big_endian=True), False)
         cases["K4 le lags 1-2"] = (lz_cuda.lcp_lags_cuda, lz_cuda.lcp_lags_plain, (spays, 2),
