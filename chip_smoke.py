@@ -23,13 +23,26 @@ Phases (any failure raises and exits non-zero; no result line then):
              (``tail_edge_batch``), held but not timed; K10 also on rows
              built for its look-back (``pack_edge_batch``), held but not
              timed; K2's, K10's and K4's tile, grid, halo or scratch, and
-             shared memory;
+             shared memory; then, held but not timed, every kernel of
+             levels 3 and 6 at the stream shape ([halo, data] rows of
+             32 + 128 KiB, base 32768, halos as the writer builds them;
+             level 3 also with a ragged last row) and K1, K2, K6, K10 at
+             Snappy's ([64, 65536], max_dist 65535, max_match 256, min_emit
+             4, 144 header bits), with a stage split of a Gzip level-3
+             stream batch;
 4. paths   — 256 MiB of text through ``ZBuilder(Mgzip)`` on the card at
              level 3, then at level 6; for each, gzip must restore it,
              every kernel of the path must have been launched, the first
              blocks must equal a CPU run's bytes, and the size is compared
              with zlib's at the same level per 128 KiB block (level 6 must
-             not exceed it);
+             not exceed it); then ``ZBuilder(Gzip)`` at level 3 (256 MiB
+             with one ``flush()`` after 100 MiB + 12,345 B) and level 6
+             (256 MiB), ``ZBuilder(Zlib)`` and ``ZBuilder(RawDeflate)`` at
+             level 3 and ``ZBuilder(Snap)`` (64 MiB each): each restored by
+             its decoder, every kernel of its path launched, the first 8
+             blocks and a 1,000-byte tail at 4 threads equal to the CPU
+             run's bytes, the size against one zlib stream (or Snappy's
+             ratio) and GB/s printed;
 5. result  — one ``kernels`` JSON line, then the last line
              ``{"ok": true, "device": {...}}``.
 """
@@ -55,7 +68,10 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # 81 integer-ALU instructions (ISETP, SEL, VIMNMX) per 4 lags per slot
 K8_ALU_OPS_PER_LAG = 81 / 4
 B, N = 64, 131072
+D = 32768  # the stream halo: the 32 KiB dictionary carried from the block before
+SNAPPY_N = 65536  # Snappy's block: one frame chunk
 PATH_BYTES = 256 << 20
+STREAM_PATH_BYTES = 64 << 20  # the Zlib, raw Deflate and Snappy paths
 SRC = "gzp_tpu_torch/csrc/"
 PALLAS = "gzp_tpu/ops/lz_pallas.py:"
 BUILD_LOGS: dict[str, str] = {}  # kernel library -> nvcc output (phase 2)
@@ -170,19 +186,22 @@ def hold(name, kernel, plain, args, kwargs, nbytes, nops, source, replaces):
 
 
 def check(name, kernel, plain, args, kwargs):
-    """Compare kernel and plain version on the same card inputs, untimed."""
-    err = max_abs_err(kernel(*args, **kwargs), plain(*args, **kwargs))
+    """Compare kernel and plain version on the same card inputs, untimed;
+    returns the kernel's result."""
+    got = kernel(*args, **kwargs)
+    err = max_abs_err(got, plain(*args, **kwargs))
     print(f"check {name}: max_abs_err {err}", flush=True)
     if err != 0:
         raise AssertionError(f"{name} disagrees with its plain version: max_abs_err {err}")
+    return got
 
 
-def window(fields, payload_bytes):
+def window(fields, payload_bytes, max_match=258, n=N):
     """The tile, window and shared memory of K6 (1 field) or K9 (2)."""
     from gzp_tpu_torch.ops import lz_cuda
 
-    t, e, r = lz_cuda.tail_window(payload_bytes, 258)
-    npad = lz_cuda.padded_len(N)
+    t, e, r = lz_cuda.tail_window(payload_bytes, max_match)
+    npad = lz_cuda.padded_len(n)
     print(f"  window: T {t}, E {e}, R {r}; grid ({-(-npad // t)}, {B}); dynamic shared "
           f"memory {lz_cuda.tail_smem_bytes(fields, t, e, r)} B per CTA", flush=True)
 
@@ -342,6 +361,7 @@ def level3_kernels(data, lengths, halo):
     # where one batch's device time goes, stage by stage (CUDA events)
     words_args = (all_bits, all_n, 8 * cfg.header_len, cfg.out_words)
     encode = dk.get_encoder(cfg, compact=True)
+    finals = torch.zeros((B,), dtype=torch.bool, device=data.device)  # members ignore it
     stages = {
         "match": time_ms(lambda: dk.match_stage(cfg, data, lengths), iters=5),
         "match.hash_pass": time_ms(lambda: lz_cuda.hash_pass(
@@ -353,7 +373,7 @@ def level3_kernels(data, lengths, halo):
         "entries": time_ms(lambda: dk.block_entries(cfg, data, marked, ln, md), iters=5),
         "pack": time_ms(lambda: pack_cuda.pack_entries_sortscan_cuda(*words_args), iters=5),
         "crc32": time_ms(lambda: dk.crc32_device(data, lengths), iters=5),
-        "encode": time_ms(lambda: encode(data, lengths), iters=5),
+        "encode": time_ms(lambda: encode(data, lengths, finals), iters=5),
     }
     print("stages ms per 64x128KiB batch: " + json.dumps(stages), flush=True)
     return rows
@@ -480,6 +500,7 @@ def level6_kernels(data, lengths, halo):
     all_bits, all_n = dk.block_entries(cfg, data, marked, ln, md)
     words_args = (all_bits, all_n, 8 * cfg.header_len, cfg.out_words)
     encode = dk.get_encoder(cfg, compact=True)
+    finals = torch.zeros((B,), dtype=torch.bool, device=data.device)  # members ignore it
     stages = {
         "match": time_ms(lambda: dk.match_stage(cfg, data, lengths), iters=5),
         "match.suffix_pass": time_ms(lambda: lz_cuda.suffix_pass(
@@ -494,10 +515,160 @@ def level6_kernels(data, lengths, halo):
         "entries": time_ms(lambda: dk.block_entries(cfg, data, marked, ln, md), iters=5),
         "pack": time_ms(lambda: pack_cuda.pack_entries_sortscan_cuda(*words_args), iters=5),
         "crc32": time_ms(lambda: dk.crc32_device(data, lengths), iters=5),
-        "encode": time_ms(lambda: encode(data, lengths), iters=5),
+        "encode": time_ms(lambda: encode(data, lengths, finals), iters=5),
     }
     print("stages ms per 64x128KiB batch, level 6: " + json.dumps(stages), flush=True)
     return rows
+
+
+def make_halo(arr, lengths):
+    """The halos the writer builds for a batch with no carry
+    (``ParCompress._make_halo``): row i gets the last D bytes of row i - 1,
+    right-aligned; row 0 none (so its halo_start is D)."""
+    from types import SimpleNamespace
+
+    from gzp_tpu_torch.parallel.compress import ParCompress
+
+    writer = SimpleNamespace(_cfg=SimpleNamespace(dict_size=D), _carry=b"")
+    return ParCompress._make_halo(writer, arr, lengths)
+
+
+def hash_checks(tag, data, lengths, hs, *, base, pw, lags, max_dist, max_match, min_emit,
+                lazy):
+    """K1, K2 and K6 of the hash matcher, each held against its plain
+    version (untimed); returns K6's (match_len, match_dist)."""
+    from gzp_tpu_torch.ops import lz_cuda
+    from gzp_tpu_torch.ops.lz import _pos_bits
+
+    pos_bits = _pos_bits(data.shape[1])
+    key, pays = check(f"K1 build_keys {tag} (pos_bits {pos_bits})", lz_cuda.build_keys_cuda,
+                      lz_cuda.build_keys_plain, (data,), dict(pos_bits=pos_bits, payload_words=pw))
+    sk, order = torch.sort(key.to(torch.int64) & 0xFFFFFFFF, dim=1)
+    spays = torch.gather(pays, 2, order.expand(pw, -1, -1))
+    sp, packed = check(f"K2 neighbor {tag} (max_dist {max_dist})", lz_cuda.neighbor_cuda,
+                       lz_cuda.neighbor_plain, (sk, spays, hs),
+                       dict(pos_bits=pos_bits, lags=lags, max_dist=max_dist))
+    return check(f"K6 match_tail {tag} (base {base}, max_match {max_match}, min_emit {min_emit})",
+                 lz_cuda.match_tail_cuda, lz_cuda.match_tail_plain,
+                 (data, lz_cuda.restore_order(sp, packed), lengths, hs),
+                 dict(base=base, payload_bytes=4 * pw, max_match=max_match, min_emit=min_emit,
+                      lazy=lazy))
+
+
+def suffix_checks(tag, data, lengths, hs, *, base, pw, lags, skw):
+    """K7, K4, K8, K1, K4, K5 and K9 of the suffix matcher, each held
+    against its plain version (untimed); returns K9's (match_len,
+    match_dist)."""
+    from gzp_tpu_torch.ops import lz_cuda
+    from gzp_tpu_torch.ops.lz import _pos_bits
+
+    keys, pos = check(f"K7 build_suffix_keys {tag}", lz_cuda.build_suffix_keys_cuda,
+                      lz_cuda.build_suffix_keys_plain, (data,), dict(payload_words=pw))
+    order = lz_cuda.suffix_order(keys, pos, skw)
+    skeys = torch.gather(keys, 2, order.expand(pw, -1, -1))
+    sp = torch.gather(pos, 1, order)
+    adj = check(f"K4 lcp_lags big-endian lag 1 {tag}", lz_cuda.lcp_lags_cuda,
+                lz_cuda.lcp_lags_plain, (skeys, 1), dict(big_endian=True))[0]
+    packed_s = check(f"K8 suffix_merge lags={lags} {tag}", lz_cuda.suffix_merge_cuda,
+                     lz_cuda.suffix_merge_plain, (sp, adj, hs),
+                     dict(lags=lags, max_dist=32768, payload_bytes=4 * pw))
+    pos_bits = _pos_bits(data.shape[1])
+    key, pays = check(f"K1 build_keys pw={pw} {tag} (pos_bits {pos_bits})",
+                      lz_cuda.build_keys_cuda, lz_cuda.build_keys_plain, (data,),
+                      dict(pos_bits=pos_bits, payload_words=pw))
+    sk, horder = torch.sort(key.to(torch.int64) & 0xFFFFFFFF, dim=1)
+    spays = torch.gather(pays, 2, horder.expand(pw, -1, -1))
+    lcps = check(f"K4 lcp_lags little-endian lags 1-2 {tag}", lz_cuda.lcp_lags_cuda,
+                 lz_cuda.lcp_lags_plain, (spays, 2), dict(big_endian=False))
+    sp_h, packed_h = check(f"K5 hash_merge {tag}", lz_cuda.hash_merge_cuda,
+                           lz_cuda.hash_merge_plain, (sk, lcps, hs),
+                           dict(pos_bits=pos_bits, max_dist=32768, payload_bytes=4 * pw))
+    return check(f"K9 match_tail2 {tag} (base {base})", lz_cuda.match_tail2_cuda,
+                 lz_cuda.match_tail2_plain,
+                 (data, lz_cuda.restore_order(sp_h, packed_h), lz_cuda.restore_order(sp, packed_s),
+                  lengths, hs),
+                 dict(base=base, payload_bytes=4 * pw, max_match=258, min_emit=3, lazy=True))
+
+
+def stream_checks(text, dev):
+    """Phase 3 at the stream and Snappy shapes, held but not timed: K1, K2,
+    K6 and K10 at Gzip level 3's stream shape ([halo, data] [64, 163840],
+    base 32768, halos as the writer builds them; a full batch and one with
+    a ragged last row), K7, K4, K8, K1, K5, K9 and K10 at level 6's, K1,
+    K2, K6 and K10 at Snappy's ([64, 65536], max_dist 65535, max_match
+    256, min_emit 4, 144 header bits); then the Gzip level-3 stream batch's
+    stage split."""
+    from gzp_tpu_torch.ops import checksum, lz_cuda, pack_cuda
+    from gzp_tpu_torch.ops import deflate_kernel as dk
+    from gzp_tpu_torch.ops import snappy_kernel as snk
+
+    cfg3 = dk.DeflateEncodeConfig.for_level(N, "stream", "crc32", 3, dict_size=D)
+    cfg6 = dk.DeflateEncodeConfig.for_level(N, "stream", "crc32", 6, dict_size=D)
+    for ragged in (False, True):
+        arr = text.copy()
+        lengths = np.full(B, N, np.int32)
+        if ragged:
+            lengths[-1] = N - 12345
+            arr[-1, lengths[-1]:] = 0
+        halo, dict_lens = make_halo(arr, lengths)
+        data, ln, halo, dict_lens = (torch.from_numpy(x).to(dev)
+                                     for x in (arr, lengths, halo, dict_lens))
+        ext = torch.cat([halo, data], dim=1)
+        hs = (D - dict_lens).to(torch.int32)
+        finals = torch.zeros((B,), dtype=torch.bool, device=dev)
+        finals[-1] = ragged
+        tag = f"stream {'ragged' if ragged else 'full'}"
+        ml, md = hash_checks(f"{tag} level 3", ext, ln, hs, base=D, pw=cfg3.payload_words,
+                             lags=cfg3.lags, max_dist=32768, max_match=258, min_emit=3,
+                             lazy=True)
+        marked, l = dk.parse_stage(cfg3, ml, ln)
+        bits, nbits = dk.block_entries(cfg3, ext, marked, l, md, finals)
+        check(f"K10 pack_prescan {tag} level 3 (E {bits.shape[1]})", pack_cuda.pack_prescan_cuda,
+              pack_cuda.pack_prescan_plain, (bits, nbits, 0), {})
+        if ragged:
+            continue
+        ml6, md6 = suffix_checks(f"{tag} level 6", ext, ln, hs, base=D, pw=cfg6.payload_words,
+                                 lags=cfg6.lags, skw=cfg6.suffix_keys)
+        marked6, l6 = dk.parse_stage(cfg6, ml6, ln)
+        bits6, nbits6 = dk.block_entries(cfg6, ext, marked6, l6, md6, finals)
+        check(f"K10 pack_prescan {tag} level 6 (E {bits6.shape[1]})",
+              pack_cuda.pack_prescan_cuda, pack_cuda.pack_prescan_plain, (bits6, nbits6, 0), {})
+        window(1, 4 * cfg3.payload_words, n=D + N)
+        window(2, 4 * cfg6.payload_words, n=D + N)
+
+        # where one stream batch's device time goes (CUDA events)
+        encode = dk.get_encoder(cfg3, compact=True)
+        words_args = (bits, nbits, 0, cfg3.out_words)
+        stages = {
+            "match": time_ms(lambda: dk.match_stage(cfg3, data, ln, halo, dict_lens), iters=5),
+            "parse": time_ms(lambda: dk.parse_stage(cfg3, ml, ln), iters=5),
+            "entries": time_ms(lambda: dk.block_entries(cfg3, ext, marked, l, md, finals),
+                               iters=5),
+            "pack": time_ms(lambda: pack_cuda.pack_entries_sortscan_cuda(*words_args), iters=5),
+            "checksum": time_ms(lambda: checksum.crc32_device(data, ln), iters=5),
+            "encode": time_ms(lambda: encode(data, ln, finals, halo, dict_lens), iters=5),
+        }
+        print("stages ms per 64x128KiB stream batch, Gzip level 3 (ext 64x160KiB): "
+              + json.dumps(stages), flush=True)
+
+    sn = SNAPPY_N
+    arr = text[:, :sn].copy()
+    lengths = np.full(B, sn, np.int32)
+    lengths[-1] = sn - 999
+    arr[-1, lengths[-1]:] = 0
+    data, ln = torch.from_numpy(arr).to(dev), torch.from_numpy(lengths).to(dev)
+    cfg = snk.SnappyEncodeConfig(block_len=sn)
+    hs = torch.zeros((B,), dtype=torch.int32, device=dev)
+    ml, md = hash_checks("snappy", data, ln, hs, base=0, pw=cfg.payload_words, lags=cfg.lags,
+                         max_dist=sn - 1, max_match=cfg.max_match, min_emit=4, lazy=False)
+    bits, nbits = snk.snappy_entries(cfg, data, ln, ml, md)
+    check(f"K10 pack_prescan snappy (E {bits.shape[1]}, base_bits {snk.HEADER_BITS})",
+          pack_cuda.pack_prescan_cuda, pack_cuda.pack_prescan_plain,
+          (bits, nbits, snk.HEADER_BITS), {})
+    window(1, 4 * cfg.payload_words, max_match=cfg.max_match, n=sn)
+    dists = md[ml > 0]
+    print(f"  snappy matches: {int((ml > 0).sum())}, longest distance {int(dists.max())}, "
+          f"{int((dists > 32768).sum())} beyond 32768", flush=True)
 
 
 def drive(level, corpus, kernels, smi):
@@ -545,6 +716,83 @@ def drive(level, corpus, kernels, smi):
     return launches
 
 
+def drive_stream(name, fmt, level, corpus, kernels, smi, wbits, flush_at=None):
+    """A stream path through ``ZBuilder(fmt)`` at ``level`` on the card, 64
+    threads: every count set to 0 just before, read just after. Checks that
+    the format's decoder restores the input, that every kernel of the path
+    was launched, and that the first 8 blocks and a 1,000-byte tail written
+    with 4 threads (two batches: the halo crosses a batch boundary) equal
+    the CPU run's bytes; prints the size (against one whole zlib stream at
+    the same level, or Snappy's ratio) and GB/s. Returns {kernel name:
+    launches}."""
+    from gzp_tpu_torch import ZBuilder
+    from gzp_tpu_torch.runtime import cuda_lib
+    from gzp_tpu_torch.utils.snappy_ref import decode_frames
+
+    block = SNAPPY_N if wbits is None else N
+
+    def compress(blob, threads=B, device=None, cut=None):
+        buf = io.BytesIO()
+        w = ZBuilder(fmt).num_threads(threads).compression_level(level).device(device).from_writer(
+            buf)
+        if cut is None:
+            w.write(blob)
+        else:  # a partial block and a sync-flush trailer mid-stream
+            w.write(blob[:cut])
+            w.flush()
+            w.write(blob[cut:])
+        w.finish()
+        return buf.getvalue()
+
+    compress(corpus[: B * block])  # warm-up: allocator, pinned buffers
+    torch.cuda.synchronize()
+    for k in cuda_lib.counts():
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = compress(corpus, cut=flush_at)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in cuda_lib.counts()}
+    print(f"path {name}: launches {json.dumps(launches)}", flush=True)
+    missing = [k.name for k in kernels if launches[k.name] <= 0]
+    if missing:
+        raise AssertionError(f"{name}: kernels of the path never launched: {missing}")
+    if wbits is None:
+        restored = decode_frames(out)
+    else:
+        d = zlib.decompressobj(wbits)  # 31 gzip, 15 zlib, -15 raw deflate
+        restored = d.decompress(out) + d.flush()
+        if not d.eof or d.unused_data:
+            raise AssertionError(f"{name}: the stream does not end where the output does")
+    if restored != corpus:
+        raise AssertionError(f"{name}: the decoder does not restore the input")
+    head = corpus[: 8 * block + 1000]
+    if compress(head, threads=4) != compress(head, threads=4, device="cpu"):
+        raise AssertionError(f"{name}: the card's stream differs from the CPU run's on the "
+                             "first 8 blocks and the tail")
+    if wbits is None:
+        size = f"ratio {len(corpus) / len(out):.4f}"
+    else:
+        z = zlib.compressobj(level, zlib.DEFLATED, wbits)
+        zsize = len(z.compress(corpus) + z.flush())
+        size = (f"ratio {len(corpus) / len(out):.4f}, size vs one zlib stream at level {level} "
+                f"{len(out) / zsize:.4f}")
+    cut = f", flush() after {flush_at} B" if flush_at is not None else ""
+    print(f"path {name}: {len(corpus)} B -> {len(out)} B{cut}, {size}; restored by its decoder; "
+          f"first 8 blocks + 1000 B equal the CPU run's; {secs:.3f} s = "
+          f"{len(corpus) / secs / 1e9:.4f} GB/s end to end on {smi}", flush=True)
+    # the host folds each block's checksum into the stream's (pigz COMB)
+    check = fmt.create_check()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        check.combine(fmt.check_cls.from_sum(0x12345678, block))
+    per_block = (time.perf_counter() - t0) / 20
+    blocks = -(-len(corpus) // block)
+    print(f"path {name}: host {fmt.check_cls.__name__}.combine {per_block * 1e3:.4f} ms per "
+          f"block, {per_block * blocks:.3f} s for the path's {blocks} blocks", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -585,6 +833,7 @@ def main() -> int:
     rows = level3_kernels(data, lengths, halo)
     rows.update(level6_kernels(data, lengths, halo))
     tail_edges(dev)
+    stream_checks(text, dev)
 
     # ---- 4. the main paths: ZBuilder(Mgzip) at levels 3 and 6 on the card
     t0 = time.perf_counter()
@@ -593,9 +842,10 @@ def main() -> int:
           flush=True)
     l3 = drive(3, corpus, [lz_cuda.BUILD_KEYS, lz_cuda.NEIGHBOR, lz_cuda.MATCH_TAIL,
                            pack_cuda.PACK_PRESCAN], smi)
-    l6 = drive(6, corpus, [lz_cuda.BUILD_KEYS, lz_cuda.LCP_LAGS, lz_cuda.HASH_MERGE,
-                           lz_cuda.BUILD_SUFFIX_KEYS, lz_cuda.SUFFIX_MERGE,
-                           lz_cuda.MATCH_TAIL2, pack_cuda.PACK_PRESCAN], smi)
+    suffix_kernels = [lz_cuda.BUILD_KEYS, lz_cuda.LCP_LAGS, lz_cuda.HASH_MERGE,
+                      lz_cuda.BUILD_SUFFIX_KEYS, lz_cuda.SUFFIX_MERGE, lz_cuda.MATCH_TAIL2,
+                      pack_cuda.PACK_PRESCAN]
+    l6 = drive(6, corpus, suffix_kernels, smi)
 
     # each row's launches on the path that runs its function: level 3 for
     # K1, K2, K6, K10; level 6 for K4, K5, K7, K8, K9. K3's function is
@@ -612,6 +862,19 @@ def main() -> int:
         rows[kid]["launches"] = path[kernel.name]
     rows["K2"]["launches"] = l3[lz_cuda.NEIGHBOR.name] - l3[loop]
     rows["K3"]["launches"] = l3[loop] + l6[loop]
+
+    # ---- 4, continued: the stream paths and Snappy through ZBuilder
+    from gzp_tpu_torch import Gzip, RawDeflate, Snap, Zlib
+
+    hash_kernels = [lz_cuda.BUILD_KEYS, lz_cuda.NEIGHBOR, lz_cuda.MATCH_TAIL,
+                    pack_cuda.PACK_PRESCAN]
+    small = corpus[:STREAM_PATH_BYTES]
+    drive_stream("Gzip level 3", Gzip, 3, corpus, hash_kernels, smi, 31,
+                 flush_at=(100 << 20) + 12345)
+    drive_stream("Gzip level 6", Gzip, 6, corpus, suffix_kernels, smi, 31)
+    drive_stream("Zlib level 3", Zlib, 3, small, hash_kernels, smi, 15)
+    drive_stream("raw Deflate level 3", RawDeflate, 3, small, hash_kernels, smi, -15)
+    drive_stream("Snappy", Snap, 0, small, hash_kernels, smi, None)
 
     # ---- 5. result
     order = ["K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10"]

@@ -4,9 +4,13 @@ The PyTorch/CUDA port of ``gzp_tpu``: the same builder and writer API and
 byte-identical output. Blocks are compressed data-parallel as the batch
 dimension of a device encoder whose LZ77 matcher and bit packer are
 hand-written CUDA kernels (``csrc/``, built with ``nvcc`` at first use)
-and whose other stages are plain PyTorch. Implemented so far: Mgzip and
-BGZF members at levels 0-5. Entry points run on ``cuda:0`` unless given
-another device; ``device="cpu"`` runs the plain versions on the CPU.
+and whose other stages are plain PyTorch. Every format ``gzp_tpu``
+compresses is written, at every level: Gzip, Zlib and raw Deflate streams
+(with the 32 KiB dictionary carried across blocks), Mgzip and BGZF
+members, and Snappy frames. Reading (parallel decompression) and
+multi-device runs are not ported yet. Entry points run on ``cuda:0``
+unless given another device; ``device="cpu"`` runs the plain versions on
+the CPU.
 
     >>> import io, gzip
     >>> from gzp_tpu_torch import ZBuilder, Mgzip
@@ -18,7 +22,7 @@ another device; ``device="cpu"`` runs the plain versions on the CPU.
     True
 """
 
-from gzp_tpu_torch.check import Adler32, Check, Crc32, PassThroughCheck  # noqa: F401
+from gzp_tpu_torch.check import Adler32, Check, Crc32, Crc32C, PassThroughCheck  # noqa: F401
 from gzp_tpu_torch.constants import BGZF_BLOCK_SIZE, BUFSIZE, DICT_SIZE  # noqa: F401
 from gzp_tpu_torch.errors import (  # noqa: F401
     BlockSizeExceededError,
@@ -40,6 +44,7 @@ from gzp_tpu_torch.formats import (  # noqa: F401
     Gzip,
     Mgzip,
     RawDeflate,
+    Snap,
     Zlib,
 )
 from gzp_tpu_torch.parallel.builder import ZBuilder  # noqa: F401

@@ -3,7 +3,7 @@
 This is the equivalent of the reference's check layer (reference
 src/check.rs:16-198): a :class:`Check` interface with ``update``,
 ``combine``, ``sum`` and ``amount``, implemented for CRC32 (gzip/mgzip/bgzf),
-Adler32 (zlib) and a pass-through.
+Adler32 (zlib), CRC32C (snappy frame CRCs) and a pass-through.
 
 ``combine`` is the pigz "COMB" trick: given checksums of two adjacent
 byte ranges, produce the checksum of their concatenation in O(log n)
@@ -14,12 +14,14 @@ zlib's ``crc32_combine``); Adler combine is modular arithmetic.
 
 Host-side ``update`` uses ``zlib.crc32``/``zlib.adler32`` (these are
 checks, not codecs — the reference likewise delegates to flate2/zlib-ng,
-reference src/check.rs:132-164). Device-side batched checksums live in
-``gzp_tpu_torch.ops.checksum``.
+reference src/check.rs:132-164) and, for CRC32C, which the stdlib does not
+provide, a numpy table CRC run over many lanes at once. Device-side
+batched checksums live in ``gzp_tpu_torch.ops.checksum``.
 """
 
 from __future__ import annotations
 
+import functools
 import zlib
 
 import numpy as np
@@ -28,10 +30,15 @@ __all__ = [
     "Check",
     "Crc32",
     "Adler32",
+    "Crc32C",
     "PassThroughCheck",
     "crc32_combine",
     "adler32_combine",
+    "crc32c",
+    "crc32c_combine",
+    "snappy_mask_crc",
     "CRC32_POLY",
+    "CRC32C_POLY",
     "crc_table",
     "crc_shift_operator_matrix",
     "crc_operator_tables",
@@ -40,8 +47,9 @@ __all__ = [
 
 U32 = 0xFFFFFFFF
 
-# Reflected polynomial.
+# Reflected polynomials.
 CRC32_POLY = 0xEDB88320
+CRC32C_POLY = 0x82F63B78
 
 ADLER_MOD = 65521
 
@@ -117,6 +125,10 @@ def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
     return _crc_combine(crc1, crc2, len2, CRC32_POLY)
 
 
+def crc32c_combine(crc1: int, crc2: int, len2: int) -> int:
+    return _crc_combine(crc1, crc2, len2, CRC32C_POLY)
+
+
 def adler32_combine(adler1: int, adler2: int, len2: int) -> int:
     """Adler32 combine (reference src/check.rs:117-128 via zlib-ng FFI).
 
@@ -155,6 +167,55 @@ def crc_table(poly: int) -> np.ndarray:
         crc = np.where(low.astype(bool), crc ^ np.uint32(poly), crc)
     _TABLE_CACHE[poly] = crc
     return crc
+
+
+def _crc_update_raw(state: int, data: bytes | np.ndarray, poly: int) -> int:
+    """Advance a raw (unconditioned) CRC register over data bytes."""
+    tab = crc_table(poly)
+    arr = np.frombuffer(bytes(data), dtype=np.uint8)
+    crc = np.uint32(state)
+    for b in arr:
+        crc = (crc >> np.uint32(8)) ^ tab[(crc ^ b) & np.uint32(0xFF)]
+    return int(crc)
+
+
+_CRC_LANE = 256  # bytes per lane of the lane-parallel CRC32C
+
+
+@functools.lru_cache(maxsize=None)
+def _lane_operator() -> np.ndarray:
+    """O_256 for CRC32C: advances a register past one lane of zero bytes."""
+    return crc_operator_tables(_CRC_LANE, CRC32C_POLY)
+
+
+def crc32c(data: bytes, value: int = 0) -> int:
+    """CRC-32C (Castagnoli), matching the snappy framing checksum.
+
+    The same value as a byte-at-a-time table CRC, computed faster: the
+    first ``len % 256`` bytes run byte by byte from ``value``; the rest
+    runs as 256-byte lanes side by side (each lane's CRC from 0), folded
+    in order by the combine rule crc(A || B) = O_256(crc(A)) ^ crc(B)."""
+    arr = np.frombuffer(bytes(data), dtype=np.uint8)
+    head = len(arr) % _CRC_LANE
+    state = _crc_update_raw((value ^ U32) & U32, arr[:head], CRC32C_POLY)
+    crc = (state ^ U32) & U32
+    lanes = arr[head:].reshape(-1, _CRC_LANE)
+    if not len(lanes):
+        return crc
+    tab = crc_table(CRC32C_POLY)
+    reg = np.full(len(lanes), U32, dtype=np.uint32)
+    for q in range(_CRC_LANE):
+        reg = (reg >> np.uint32(8)) ^ tab[(reg ^ lanes[:, q]) & np.uint32(0xFF)]
+    op = _lane_operator()
+    for lane_crc in (reg ^ np.uint32(U32)).tolist():
+        crc = int(op[0][crc & 0xFF] ^ op[1][(crc >> 8) & 0xFF] ^ op[2][(crc >> 16) & 0xFF]
+                  ^ op[3][crc >> 24]) ^ lane_crc
+    return crc
+
+
+def snappy_mask_crc(crc: int) -> int:
+    """Snappy frame format masks its CRCs: rotate right 15, add constant."""
+    return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & U32
 
 
 # ---------------------------------------------------------------------------
@@ -334,6 +395,32 @@ class Adler32(Check):
         obj._sum = value
         obj._amount = amount & U32
         return obj
+
+
+class Crc32C(Check):
+    """CRC-32C (snappy frame checksums). Not present in the reference's check
+    layer (the snap crate computes it internally); surfaced here because the
+    snappy frame assembly is explicit."""
+
+    name = "crc32c"
+
+    def __init__(self) -> None:
+        self._sum = 0
+        self._amount = 0
+
+    def sum(self) -> int:
+        return self._sum & U32
+
+    def amount(self) -> int:
+        return self._amount & U32
+
+    def update(self, data: bytes) -> None:
+        self._sum = crc32c(data, self._sum)
+        self._amount = (self._amount + len(data)) & U32
+
+    def combine(self, other: Check) -> None:
+        self._sum = crc32c_combine(self._sum, other.sum(), other.amount())
+        self._amount = (self._amount + other.amount()) & U32
 
 
 class PassThroughCheck(Check):

@@ -51,6 +51,12 @@ MIN_MATCH = 3
 MAX_MATCH = 258
 MAX_DIST = 32768
 
+# Snappy (frame format constants).
+SNAPPY_STREAM_IDENTIFIER = b"\xff\x06\x00\x00sNaPpY"
+SNAPPY_MAX_CHUNK = 65536  # max uncompressed bytes per frame chunk
+SNAPPY_MIN_MATCH = 4
+
+
 def clamp_compression_level(level: int) -> int:
     """Clamp to the zlib-compatible 0..9 range (reference uses flate2's
     ``Compression::new(n)`` which accepts 0..9)."""

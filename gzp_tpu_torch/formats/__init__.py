@@ -6,5 +6,6 @@ from gzp_tpu_torch.formats.deflate_formats import (  # noqa: F401
     RawDeflate,
     Zlib,
 )
+from gzp_tpu_torch.formats.snap import Snap  # noqa: F401
 
-ALL_FORMATS = {f.name: f for f in (Gzip, Zlib, RawDeflate, Mgzip, Bgzf)}
+ALL_FORMATS = {f.name: f for f in (Gzip, Zlib, RawDeflate, Mgzip, Bgzf, Snap)}

@@ -1,13 +1,17 @@
-"""Batched device CRC32 over ``[B, N]`` blocks, in plain PyTorch.
+"""Batched device checksums over ``[B, N]`` blocks: CRC32, masked CRC32C
+and Adler32, in plain PyTorch.
 
 Counterpart of ``gzp_tpu/ops/checksum.py`` (``crc_device``,
-``crc_device_exact``, ``crc32_device``). CRC is linear over GF(2), so each
+``crc_device_exact``, ``crc32_device``, ``crc32c_masked_device``,
+``adler32_device``), which are XLA there, not Pallas. CRC is linear over GF(2), so each
 ``seg``-byte segment's raw register is ``bits @ M`` (mod 2) for a constant
 basis matrix, and the pigz-COMB fold of the segments into the block's raw
 register is a second constant matmul. The products run in float64: the
 sums are small integers (at most ``N/seg * 32``), exact in any summation
 order, and float64 products never go through TF32. Ragged blocks then
 remove their zero padding with a ladder of inverse shift operators.
+Adler32 is modular arithmetic over segment sums. u32 values are int64
+masked to 32 bits.
 """
 
 from __future__ import annotations
@@ -92,3 +96,53 @@ def crc32_device(data_u8: torch.Tensor, lengths: torch.Tensor | None = None) -> 
     if lengths is None:
         return crc_device(data_u8, _check.CRC32_POLY)
     return crc_device_exact(data_u8, lengths, _check.CRC32_POLY)
+
+
+def crc32c_masked_device(data_u8: torch.Tensor, lengths: torch.Tensor | None = None
+                         ) -> torch.Tensor:
+    """Batched snappy-frame checksum as [B] int64: CRC32C, then snappy's
+    masking (rotate right 15, add 0xA282EAD8, mod 2**32)."""
+    if lengths is None:
+        crc = crc_device(data_u8, _check.CRC32C_POLY)
+    else:
+        crc = crc_device_exact(data_u8, lengths, _check.CRC32C_POLY)
+    return ((((crc >> 15) | (crc << 17)) & M32) + 0xA282EAD8) & M32
+
+
+ADLER_MOD = 65521
+_ADLER_SEG = 128
+
+
+def adler32_device(data_u8: torch.Tensor, lengths: torch.Tensor | None = None
+                   ) -> torch.Tensor:
+    """Batched Adler32 as [B] int64; exact for zero-padded blocks when
+    ``lengths`` is given.
+
+    Per segment s of length L: S1_s = sum(b_q), Q_s = sum(q * b_q); then
+      A = 1 + sum_s S1_s                               (mod 65521)
+      B = len + sum_s ((N - s*L) * S1_s - Q_s)
+             - (N - len) * sum_s S1_s                  (mod 65521)
+    (zero pad bytes add nothing to any byte sum, so only the position
+    weights need the length correction).
+    """
+    b, n = data_u8.shape
+    dev = data_u8.device
+    seg = _ADLER_SEG
+    while n % seg != 0:
+        seg //= 2
+    nseg = n // seg
+    data = data_u8.reshape(b, nseg, seg).to(torch.int64)
+    s1 = data.sum(dim=-1) % ADLER_MOD  # [B, S]
+    qsum = (data * torch.arange(seg, device=dev)).sum(dim=-1) % ADLER_MOD
+    weight = (n - torch.arange(nseg, device=dev) * seg) % ADLER_MOD
+    term = ((weight * s1) % ADLER_MOD + ADLER_MOD - qsum) % ADLER_MOD
+    s1_total = s1.sum(dim=-1) % ADLER_MOD
+    a = (1 + s1_total) % ADLER_MOD
+    bsum = term.sum(dim=-1) % ADLER_MOD
+    if lengths is None:
+        ln = torch.full((b,), n, dtype=torch.int64, device=dev)
+    else:
+        ln = lengths.to(device=dev, dtype=torch.int64)
+    corr = ((n - ln) % ADLER_MOD) * s1_total % ADLER_MOD
+    bsum = (bsum + ln % ADLER_MOD + ADLER_MOD - corr) % ADLER_MOD
+    return (bsum << 16) | a

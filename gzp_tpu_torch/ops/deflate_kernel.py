@@ -1,19 +1,29 @@
 """Batched DEFLATE encoder: matching, parse, token emission, bit packing
-and member framing, for a whole batch of blocks at once.
+and framing, for a whole batch of blocks at once.
 
-Counterpart of ``gzp_tpu/ops/deflate_kernel.py`` for the block-member
-formats (Mgzip, BGZF): every block becomes a standalone gzip member that
-leaves the device fully framed (header with the per-format size field,
-dynamic-or-fixed Huffman payload, CRC32 + ISIZE footer). The stages are
+Counterpart of ``gzp_tpu/ops/deflate_kernel.py``. Modes:
 
-1. match (:func:`match_stage`): LZ77 candidates; the hash matcher
-   (levels 0-5: CUDA kernels K1, K2, K6) or the suffix matcher (levels
-   6-9: K7, K4, K8, K1, K5, K9);
+* ``mgzip`` / ``bgzf``: every block becomes a standalone gzip member that
+  leaves the device fully framed (header with the per-format size field,
+  dynamic-or-fixed Huffman payload, CRC32 + ISIZE footer);
+* ``stream`` (Gzip, Zlib, raw Deflate): every block is a chunk of one
+  deflate stream whose matches may reach into a halo of the previous
+  block's last ``dict_size`` bytes; non-final chunks end with an empty
+  stored block (Z_SYNC_FLUSH, the pigz block join; reference
+  src/deflate.rs:96-100), the final chunk sets BFINAL and pads to a byte.
+  The host writes the stream's header and footer.
+
+The stages are
+
+1. match (:func:`match_stage`): halo concat, then LZ77 candidates; the
+   hash matcher (levels 0-5: CUDA kernels K1, K2, K6) or the suffix
+   matcher (levels 6-9: K7, K4, K8, K1, K5, K9);
 2. parse (:func:`parse_stage`): the greedy parse as a δ-state scan;
 3. emit (:func:`block_entries`): symbols, Huffman tables (one set per
    sub-block), per-position (value, width) bit entries;
 4. pack: K10 plus a scatter of finished words;
-5. finish (:func:`emit_stage`): CRC32, framing, :func:`compact_outputs`.
+5. finish (:func:`emit_stage`): the sync-flush trailer or member framing,
+   the checksum, :func:`compact_outputs`.
 
 Tensors stay on the device the input is on. There is no compile step:
 :func:`get_encoder` returns a plain function.
@@ -34,11 +44,12 @@ from gzp_tpu_torch.constants import (
     MIN_MATCH,
 )
 from gzp_tpu_torch.ops import huffman, lz
-from gzp_tpu_torch.ops.checksum import crc32_device
+from gzp_tpu_torch.ops.checksum import adler32_device, crc32_device
 from gzp_tpu_torch.ops.lz_cuda import best_matches_cuda, best_matches_suffix_cuda
 from gzp_tpu_torch.ops.pack_cuda import pack_entries_sortscan_cuda
 
 I64 = torch.int64
+M32 = 0xFFFFFFFF
 
 
 def _member_header_template(mode: str, level: int) -> np.ndarray:
@@ -240,46 +251,65 @@ def emit_token_entries(marked, prev_match, sym, leb, lextra, dsym_s, deb_s, dext
     return bits, nbits
 
 
-def match_stage(cfg: DeflateEncodeConfig, data_u8: torch.Tensor, lengths: torch.Tensor):
-    """Stage 1: LZ77 match finding -> (match_len, match_dist) [B, N] int32."""
-    kw = dict(max_dist=MAX_DIST, max_match=MAX_MATCH, min_emit=MIN_MATCH, lazy=cfg.lazy,
-              payload_words=cfg.payload_words, lags=cfg.lags)
+def match_stage(cfg: DeflateEncodeConfig, data_u8: torch.Tensor, lengths: torch.Tensor,
+                halo: torch.Tensor | None = None, dict_lens: torch.Tensor | None = None):
+    """Stage 1: halo concat + LZ77 match finding -> ``(ext, match_len,
+    match_dist)``. With ``cfg.dict_size`` = D > 0, ``ext`` = [halo, data]
+    [B, D + N] and match sources may reach back to ``halo_start`` = D -
+    ``dict_lens``; the match fields are [B, D + N] int32, zero in the halo."""
+    base = cfg.dict_size
+    if base:
+        if halo is None or dict_lens is None:
+            raise ValueError(f"dict_size={base} needs halo and dict_lens")
+        ext = torch.cat([halo, data_u8], dim=1)
+        halo_start = (base - dict_lens.to(torch.int32)).to(torch.int32)
+    else:
+        ext, halo_start = data_u8, None
+    kw = dict(max_dist=MAX_DIST, max_match=MAX_MATCH, min_emit=MIN_MATCH, base=base,
+              halo_start=halo_start, lazy=cfg.lazy, payload_words=cfg.payload_words,
+              lags=cfg.lags)
     if cfg.matcher == "suffix":
-        return best_matches_suffix_cuda(data_u8, lengths, suffix_keys=cfg.suffix_keys, **kw)
+        return ext, *best_matches_suffix_cuda(ext, lengths, suffix_keys=cfg.suffix_keys, **kw)
     if cfg.matcher == "hash":
-        return best_matches_cuda(data_u8, lengths, **kw)
+        return ext, *best_matches_cuda(ext, lengths, **kw)
     raise ValueError(f"matcher={cfg.matcher!r}")
 
 
 def parse_stage(cfg: DeflateEncodeConfig, match_len: torch.Tensor, lengths: torch.Tensor):
-    """Stage 2: greedy parse of the match field into token starts. With
-    sub-blocks, no match starts on the last position before a sub-block
-    boundary: its distance half (stashed at i+1) would land after the next
-    sub-block's end-of-block symbol and header."""
+    """Stage 2: greedy parse of the match field (halo included) into token
+    starts. With sub-blocks, no match starts on the last position before a
+    sub-block boundary: its distance half (stashed at i+1) would land after
+    the next sub-block's end-of-block symbol and header."""
+    base = cfg.dict_size
     if cfg.subblocks > 1:
         ns = cfg.block_len // cfg.subblocks
         match_len = match_len.clone()
-        match_len[:, [(s + 1) * ns - 1 for s in range(cfg.subblocks - 1)]] = 0
-    return lz.parse_marks_scan(match_len, lengths, min_emit=MIN_MATCH)
+        match_len[:, [base + (s + 1) * ns - 1 for s in range(cfg.subblocks - 1)]] = 0
+    return lz.parse_marks_scan(match_len, lengths, min_emit=MIN_MATCH, base=base)
 
 
-def block_entries(cfg: DeflateEncodeConfig, data_u8, marked, l, match_dist):
-    """Stage 3: per block, the deflate bit entries in stream order. Each of
-    the ``cfg.subblocks`` deflate blocks of a block (equal slices of it)
-    has its own Huffman tables: its header (with the dynamic table
-    description), one entry per position and its end-of-block symbol;
-    only the last is final. Returns (bits, nbits) [B, E] int32 (bits <
-    2**nbits, widths in [0, 31])."""
-    b, n = data_u8.shape
+def block_entries(cfg: DeflateEncodeConfig, ext, marked, l, match_dist, is_final=None):
+    """Stage 3: per block, the deflate bit entries in stream order. ``ext``
+    and the parse fields are [B, D + N] (D = ``cfg.dict_size``; the halo's
+    positions carry no tokens and are sliced off). Each of the
+    ``cfg.subblocks`` deflate blocks of a block (equal slices of it) has
+    its own Huffman tables: its header (with the dynamic table
+    description), one entry per position and its end-of-block symbol. A
+    member's last sub-block is final; in stream mode the last sub-block of
+    a block whose ``is_final`` [B] is set. Returns (bits, nbits) [B, E]
+    int32 (bits < 2**nbits, widths in [0, 31])."""
+    b = ext.shape[0]
+    base = cfg.dict_size
     s_count = cfg.subblocks
+    ns = cfg.block_len // s_count
     sym, leb, lextra, dsym, deb, dextra, is_match = compute_symbols(
-        data_u8, marked, l, match_dist)
+        ext, marked, l, match_dist)
 
     def stash(x, fill=0):  # a match's distance half sits at i+1, across sub-blocks
         return torch.cat([torch.full_like(x[:, :1], fill), x[:, :-1]], dim=1)
 
-    def rows(x):  # [B, N] -> [B * S, N / S], one row per sub-block
-        return x.reshape(b * s_count, n // s_count)
+    def rows(x):  # [B, D + N] -> [B * S, N / S], one row per sub-block
+        return x[:, base:].reshape(b * s_count, ns)
 
     prev_match = rows(stash(is_match, False))
     dsym_s, deb_s, dextra_s = rows(stash(dsym)), rows(stash(deb)), rows(stash(dextra))
@@ -287,8 +317,11 @@ def block_entries(cfg: DeflateEncodeConfig, data_u8, marked, l, match_dist):
     lit_freq, dist_freq = huffman.position_histograms(sym, dsym_s, marked, prev_match)
     lit_codes, lit_lens, dist_codes, dist_lens, use_dyn, dlit_lens, ddist_lens = (
         huffman.choose_tables(lit_freq, dist_freq))
-    # every member ends with its last sub-block
-    final = (torch.arange(b * s_count, device=data_u8.device) % s_count) == s_count - 1
+    last = (torch.arange(b * s_count, device=ext.device) % s_count) == s_count - 1
+    if cfg.mode == "stream":
+        final = last & is_final.to(torch.bool).repeat_interleave(s_count)
+    else:  # every member ends with its last sub-block
+        final = last
     hfield_bits, hfield_n = huffman.dynamic_header_fields_rle(
         dlit_lens, ddist_lens, final, use_dyn)
     bits, nbits = emit_token_entries(
@@ -306,19 +339,50 @@ def _le_bytes(v: torch.Tensor, nbytes: int) -> torch.Tensor:
     return ((v.to(I64)[..., None] >> shifts) & 0xFF).to(torch.uint8)
 
 
-def emit_stage(cfg: DeflateEncodeConfig, data_u8, lengths, marked, l, match_dist):
-    """Stages 3-5 for member modes: entries, packing and framing. Returns
-    dict ``out`` [B, out_bytes] uint8 (framed members), ``out_len`` [B]
-    int32, ``check`` [B] int64 (each member's CRC32)."""
+def _sync_flush_trailer(words, total_bits, final):
+    """Z_SYNC_FLUSH after each non-final stream chunk: an empty stored
+    block, '000' + pad to a byte + LEN 0x0000 NLEN 0xFFFF. Every bit of it
+    is zero but the 32-bit value 0xFFFF0000 at the byte-aligned offset o2,
+    which may straddle two words (u32 in int64, masked). Returns (words,
+    end_bits)."""
+    tb = total_bits.to(I64)
+    o2 = (tb + 3 + 7) & ~7
+    v = torch.where(final, 0, 0xFFFF0000)
+    s = o2 & 31
+    w = (o2 >> 5)[:, None]
+    words = words.scatter_add(1, w, ((v << s) & M32)[:, None])
+    words = words.scatter_add(1, w + 1, ((v >> (31 - s)) >> 1)[:, None])
+    return words, torch.where(final, (tb + 7) & ~7, o2 + 32)
+
+
+def emit_stage(cfg: DeflateEncodeConfig, data_u8, ext, lengths, is_final, marked, l,
+               match_dist):
+    """Stages 3-5: entries, packing, the stream trailer or member framing,
+    and the checksum. Returns dict ``out`` [B, out_bytes] uint8 (a framed
+    member, or a bare deflate chunk in stream mode), ``out_len`` [B] int32,
+    ``check`` [B] int64 (a member's CRC32; in stream mode the block's
+    ``cfg.checksum``: crc32, adler32, or zeros for 'none')."""
     b, n = data_u8.shape
     if n != cfg.block_len:
         raise ValueError(f"block width {n} != config block_len {cfg.block_len}")
-    all_bits, all_n = block_entries(cfg, data_u8, marked, l, match_dist)
+    member = cfg.mode != "stream"
+    all_bits, all_n = block_entries(cfg, ext, marked, l, match_dist, is_final)
     hl = cfg.header_len
     words, total_bits = pack_entries_sortscan_cuda(all_bits, all_n, 8 * hl, cfg.out_words)
-    end_bits = (total_bits.to(I64) + 7) & ~7
+    if member:
+        end_bits = (total_bits.to(I64) + 7) & ~7
+    else:
+        words, end_bits = _sync_flush_trailer(words, total_bits, is_final.to(torch.bool))
     by = _le_bytes(words, 4).reshape(b, cfg.out_bytes)
     deflate_bytes = (end_bits >> 3) - hl
+    if not member:
+        if cfg.checksum == "crc32":
+            chk = crc32_device(data_u8, lengths)
+        elif cfg.checksum == "adler32":
+            chk = adler32_device(data_u8, lengths)
+        else:
+            chk = torch.zeros((b,), dtype=I64, device=data_u8.device)
+        return {"out": by, "out_len": deflate_bytes.to(torch.int32), "check": chk}
 
     by[:, :hl] = torch.as_tensor(_member_header_template(cfg.mode, cfg.level), device=by.device)
     if cfg.mode == "mgzip":
@@ -355,27 +419,23 @@ def compact_outputs(out: torch.Tensor, out_len: torch.Tensor) -> torch.Tensor:
 
 
 def get_encoder(cfg: DeflateEncodeConfig, compact: bool = False):
-    """Batched encoder for a config: ``encode(data_u8 [B, N] uint8,
-    lengths [B] int32) -> dict`` (see :func:`emit_stage`; with
-    ``compact=True`` also ``flat``, see :func:`compact_outputs`). Runs on
-    the device of its inputs.
+    """Batched encoder for a config: ``encode(data_u8 [B, N] uint8, lengths
+    [B] int32, is_final [B] bool, halo=None, dict_lens=None) -> dict`` (see
+    :func:`emit_stage`; with ``compact=True`` also ``flat``, see
+    :func:`compact_outputs`). With ``cfg.dict_size`` = D > 0, ``halo`` [B, D]
+    uint8 holds each block's preset dictionary right-aligned (the previous
+    block's trailing bytes) and ``dict_lens`` [B] its valid bytes; match
+    distances may reach into it, the 32 KiB cross-block dictionary carry
+    (reference src/par/compress.rs:417-423). ``is_final`` matters only in
+    stream mode. Runs on the device of its inputs."""
+    if cfg.block_len % cfg.subblocks:
+        raise ValueError(f"subblocks={cfg.subblocks} do not divide block_len={cfg.block_len}")
 
-    Implemented: the member modes (Mgzip, BGZF) at every level. Stream
-    mode raises ``NotImplementedError``.
-    """
-    if cfg.mode == "stream":
-        raise NotImplementedError(
-            "stream mode (Gzip/Zlib/RawDeflate) is not ported yet: ROADMAP.md queue A, "
-            "'Stream mode'")
-    if cfg.checksum not in ("crc32", "none") or cfg.dict_size or cfg.block_len % cfg.subblocks:
-        raise NotImplementedError(f"member mode with checksum={cfg.checksum!r}, "
-                                  f"dict_size={cfg.dict_size}, subblocks={cfg.subblocks} "
-                                  f"of block_len={cfg.block_len}")
-
-    def encode(data_u8: torch.Tensor, lengths: torch.Tensor) -> dict:
-        match_len, match_dist = match_stage(cfg, data_u8, lengths)
+    def encode(data_u8: torch.Tensor, lengths: torch.Tensor, is_final: torch.Tensor,
+               halo: torch.Tensor | None = None, dict_lens: torch.Tensor | None = None) -> dict:
+        ext, match_len, match_dist = match_stage(cfg, data_u8, lengths, halo, dict_lens)
         marked, l = parse_stage(cfg, match_len, lengths)
-        res = emit_stage(cfg, data_u8, lengths, marked, l, match_dist)
+        res = emit_stage(cfg, data_u8, ext, lengths, is_final, marked, l, match_dist)
         if compact:
             res["flat"] = compact_outputs(res["out"], res["out_len"])
         return res

@@ -12,6 +12,9 @@ fed over bounded channels, and an ordered writer stitching results. Here:
 * PyTorch queues device work asynchronously, so up to ``queue_depth``
   batches are in flight while the host stitches finished ones in
   submission order;
+* in stream mode (Gzip, Zlib, raw Deflate) every block carries the last
+  32 KiB of the block before it as a halo its matches may reach into
+  (reference src/par/compress.rs:417-423), across batches too;
 * per-block checksums come back with each batch and are folded into the
   stream check by O(log) combine (pigz COMB, reference
   src/par/compress.rs:302-313).
@@ -41,6 +44,7 @@ from gzp_tpu_torch.constants import (
     DEFAULT_COMPRESSION_LEVEL,
     DICT_SIZE,
     MAX_BGZF_BLOCK_SIZE,
+    SNAPPY_STREAM_IDENTIFIER,
     clamp_compression_level,
 )
 from gzp_tpu_torch.errors import (
@@ -53,6 +57,9 @@ from gzp_tpu_torch.errors import (
 from gzp_tpu_torch.formats.base import FormatSpec
 from gzp_tpu_torch.ops import host_codec
 from gzp_tpu_torch.ops.deflate_kernel import DeflateEncodeConfig, get_encoder
+from gzp_tpu_torch.ops.snappy_kernel import SnappyEncodeConfig, get_snappy_encoder
+from gzp_tpu_torch.utils.serialize import put_le
+from gzp_tpu_torch.utils.snappy_ref import decode_frames
 
 DEFAULT_NUM_THREADS = 16
 DEFAULT_QUEUE_DEPTH = 3
@@ -78,9 +85,21 @@ class ParCompress:
     ``finish()`` finalizes the stream and returns the underlying writer
     (reference ``ZWriter::finish``, src/lib.rs:166-170).
 
-    ``verify=True`` inflates every emitted member on the host and swaps in
-    a stored encoding on any mismatch (``verify_stats`` counts checks and
-    repairs).
+    Shard-mode knobs (gzp_tpu's public API for one host compressing a
+    contiguous mid-stream block range):
+
+    * ``emit_header=False``  — suppress the stream header (rank > 0)
+    * ``emit_footer=False``  — suppress trailer+footer (a stitcher emits
+      them once with the combined check)
+    * ``final_on_finish=False`` — ``finish()`` dispatches the tail as a
+      non-final block (the stream continues in the next shard)
+    * ``preset_carry``       — preset the 32 KiB dictionary from the
+      previous shard's trailing input bytes
+    * ``use_dict=False``     — no dictionary carried across blocks
+
+    ``verify=True`` oracle-decodes every emitted block on the host and
+    swaps in an uncompressed encoding on any mismatch (``verify_stats``
+    counts checks and repairs).
     """
 
     def __init__(
@@ -93,6 +112,11 @@ class ParCompress:
         buffer_size: int | None = None,
         queue_depth: int = DEFAULT_QUEUE_DEPTH,
         device: str | torch.device | None = None,
+        use_dict: bool = True,
+        emit_header: bool = True,
+        emit_footer: bool = True,
+        final_on_finish: bool = True,
+        preset_carry: bytes = b"",
         verify: bool = False,
     ) -> None:
         if num_threads < 1:
@@ -103,8 +127,6 @@ class ParCompress:
             raise BufferSizeError(buffer_size, DICT_SIZE)
         if format_spec.max_input_block is not None:
             buffer_size = min(buffer_size, format_spec.max_input_block)
-        if format_spec.codec != "deflate":
-            raise NotImplementedError(f"codec {format_spec.codec!r} is not ported yet")
 
         self.format = format_spec
         self.writer = writer
@@ -115,22 +137,34 @@ class ParCompress:
         self.device = resolve_device(device)
         self._verify = verify
         self.verify_stats = {"checked": 0, "repaired": 0}
+        self._verify_stream = None  # incremental inflater of the stream-mode oracle
+        self._emit_footer = emit_footer
+        self._final_on_finish = final_on_finish
         self._buffer = bytearray()
+        self._carry = preset_carry[-DICT_SIZE:] if preset_carry else b""
         self._inflight: collections.deque = collections.deque()
         self._check = format_spec.create_check()
-        self._header_written = False
+        self._header_written = not emit_header
         self._finished = False
         self._error: BaseException | None = None
         self._wrote_final_block = False
         self._emitted_any = False
 
-        checksum = {"crc32": "crc32", "adler32": "adler32"}.get(
-            format_spec.check_cls().name, "none")
-        self._cfg = DeflateEncodeConfig.for_level(
-            block_len=self.block_size, mode=format_spec.kernel_mode,
-            checksum=checksum, level=self.level,
-        )
-        self._encoder = get_encoder(self._cfg, compact=True)
+        if format_spec.codec == "deflate":
+            checksum = {"crc32": "crc32", "adler32": "adler32"}.get(
+                format_spec.check_cls().name, "none")
+            stream = format_spec.kernel_mode == "stream"
+            dict_size = DICT_SIZE if use_dict and format_spec.needs_dict and stream else 0
+            self._cfg = DeflateEncodeConfig.for_level(
+                block_len=self.block_size, mode=format_spec.kernel_mode,
+                checksum=checksum, level=self.level, dict_size=dict_size,
+            )
+            self._encoder = get_encoder(self._cfg, compact=True)
+        elif format_spec.codec == "snappy":
+            self._cfg = SnappyEncodeConfig(block_len=self.block_size)
+            self._encoder = get_snappy_encoder(self._cfg)
+        else:
+            raise ValueError(f"unknown codec {format_spec.codec}")
 
     # ------------------------------------------------------------------
     # io.RawIOBase-ish surface
@@ -150,7 +184,7 @@ class ParCompress:
 
     def flush(self) -> None:
         """Push all buffered bytes through the device (a partial block is
-        emitted as its own member), drain, flush the sink."""
+        emitted as its own non-final block), drain, flush the sink."""
         self._ensure_open()
         if self._buffer:
             self._dispatch_tail(bytes(self._buffer), final=False)
@@ -165,16 +199,17 @@ class ParCompress:
         self._ensure_open()
         data = bytes(self._buffer)
         self._buffer.clear()
-        self._dispatch_tail(data, final=True)
+        self._dispatch_tail(data, final=self._final_on_finish)
         self._drain_all()
         if not self._header_written:
             self._write_header()
-        trailer = self.format.trailer_bytes()
-        if trailer:
-            self.writer.write(trailer)
-        footer = self.format.footer(self._check)
-        if footer:
-            self.writer.write(footer)
+        if self._emit_footer:
+            trailer = self.format.trailer_bytes()
+            if trailer:
+                self.writer.write(trailer)
+            footer = self.format.footer(self._check)
+            if footer:
+                self.writer.write(footer)
         self._finished = True
         return self.writer
 
@@ -216,30 +251,72 @@ class ParCompress:
             self.writer.write(hdr)
         self._header_written = True
 
+    @property
+    def _member(self) -> bool:
+        return self.format.kernel_mode in ("mgzip", "bgzf")
+
+    def _make_halo(self, arr: np.ndarray, lengths: np.ndarray):
+        """Per-block preset dictionaries: row i gets the trailing bytes of
+        row i-1 (right-aligned); row 0 gets the carry from the previous
+        batch. Returns (halo [B, D] u8, dict_lens [B] i32) or (None, None)."""
+        d = getattr(self._cfg, "dict_size", 0)
+        if not d:
+            return None, None
+        b, n = arr.shape
+        halo = np.zeros((b, d), dtype=np.uint8)
+        dict_lens = np.zeros(b, dtype=np.int32)
+        if self._carry:
+            cl = min(len(self._carry), d)
+            halo[0, d - cl:] = np.frombuffer(self._carry[-cl:], np.uint8)
+            dict_lens[0] = cl
+        if b > 1:
+            # row i gets arr[i-1, pl-cl : pl] right-aligned
+            pl = lengths[:-1].astype(np.int64)
+            cl = np.minimum(pl, d)
+            src = pl[:, None] - d + np.arange(d, dtype=np.int64)[None, :]
+            vals = np.take_along_axis(arr[:-1], np.clip(src, 0, n - 1), axis=1)
+            halo[1:] = np.where(src >= (pl - cl)[:, None], vals, 0)
+            dict_lens[1:] = cl
+        return halo, dict_lens
+
+    def _update_carry(self, arr: np.ndarray, lengths: np.ndarray, count: int) -> None:
+        d = getattr(self._cfg, "dict_size", 0)
+        if not d or count == 0:
+            return
+        pl = int(lengths[count - 1])
+        cl = min(pl, d)
+        if cl:
+            self._carry = arr[count - 1, pl - cl: pl].tobytes()
+
     def _dispatch_tail(self, data: bytes, final: bool) -> None:
-        """Dispatch remaining bytes (always < one full batch), padding the
-        batch. A final call with no data still dispatches one empty block —
-        the empty member of an empty input (reference flush_last,
-        src/par/compress.rs:332-341)."""
+        """Dispatch remaining bytes, padding the batch; marks the last real
+        block final when closing the stream. A final call with no data still
+        dispatches one empty final block: it closes a deflate stream (BFINAL),
+        is a Snappy stream's identifier-only frame, and is the empty member of
+        an empty Mgzip/BGZF input (reference flush_last,
+        src/par/compress.rs:332-341). A non-empty member stream needs no
+        closing block, so none is encoded."""
         n, b = self.block_size, self.batch
         if not data and (not final or self._wrote_final_block):
             return
-        if not data and (self._emitted_any or self._inflight):
-            # members need no closing block: the empty final block would be
-            # dropped in _stitch_batch, so skip encoding a whole batch for it
+        if not data and self._member and (self._emitted_any or self._inflight):
             return
-        cnt = -(-len(data) // n) if data else 1
-        arr = np.zeros((b, n), dtype=np.uint8)
-        lengths = np.zeros(b, dtype=np.int32)
-        finals = np.zeros(b, dtype=bool)
-        for i in range(cnt):
-            piece = data[i * n: (i + 1) * n]
-            arr[i, : len(piece)] = np.frombuffer(piece, dtype=np.uint8)
-            lengths[i] = len(piece)
-        if final:
-            finals[cnt - 1] = True
-            self._wrote_final_block = True
-        self._dispatch(arr, lengths, finals, count=cnt)
+        while True:
+            take, data = data[: n * b], data[n * b:]
+            cnt = -(-len(take) // n) if take else 1
+            arr = np.zeros((b, n), dtype=np.uint8)
+            lengths = np.zeros(b, dtype=np.int32)
+            finals = np.zeros(b, dtype=bool)
+            for i in range(cnt):
+                piece = take[i * n: (i + 1) * n]
+                arr[i, : len(piece)] = np.frombuffer(piece, dtype=np.uint8)
+                lengths[i] = len(piece)
+            if final and not data:
+                finals[cnt - 1] = True
+                self._wrote_final_block = True
+            self._dispatch(arr, lengths, finals, count=cnt)
+            if not data:
+                return
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(arr)
@@ -249,8 +326,11 @@ class ParCompress:
         return t.to(self.device)
 
     def _dispatch(self, arr, lengths, finals, count: int | None = None) -> None:
+        halo, dict_lens = self._make_halo(arr, lengths)
+        self._update_carry(arr, lengths, count or len(lengths))
+        args = [arr, lengths, finals] + ([halo, dict_lens] if halo is not None else [])
         try:
-            res = self._encoder(self._to_device(arr), self._to_device(lengths))
+            res = self._encoder(*map(self._to_device, args))
         except Exception as e:  # launch failure
             self._error = e
             raise
@@ -289,32 +369,53 @@ class ParCompress:
         pieces: list[bytes] = []
         for i in range(count):
             ln = int(lengths[i])
-            if ln == 0 and (not finals[i] or self._emitted_any):
-                # padding block, or the closing block of a non-empty stream
-                # (member formats need none; only an entirely empty stream
-                # gets one empty member)
+            fin = bool(finals[i])
+            if ln == 0 and not fin:
+                continue  # padding block
+            if ln == 0 and self._member and self._emitted_any:
+                # member formats need no closing block; only an entirely
+                # empty stream gets one empty member
                 continue
             blob = get_blob(i)
             raw = arr[i, :ln].tobytes()
             chk = int(chks[i])
-            blob = self._maybe_fallback(blob, raw, ln)
+            blob = self._maybe_fallback(blob, raw, ln, fin, chk)
             if self._verify:
-                blob, chk = self._verify_or_repair(blob, raw, chk)
+                blob, chk = self._verify_or_repair(blob, raw, ln, fin, chk)
             self._check.combine(fmt.check_cls.from_sum(chk, ln))
             pieces.append(blob)
             self._emitted_any = True
         if pieces:
             self.writer.write(b"".join(pieces))
 
-    def _verify_or_repair(self, blob: bytes, raw: bytes, chk: int) -> tuple[bytes, int]:
-        """Inflate ``blob`` on the host; on any mismatch re-emit the block
-        as a stored member with a host-computed CRC32."""
+    @staticmethod
+    def _snappy_uncompressed(raw: bytes, chk: int) -> bytes:
+        """A frame of one uncompressed chunk (its CRC the device-computed
+        masked CRC32C: the checksum reads the input, not the encoding)."""
+        return (SNAPPY_STREAM_IDENTIFIER + b"\x01" + put_le(len(raw) + 4, 3) + put_le(chk, 4)
+                + raw)
+
+    def _verify_or_repair(self, blob: bytes, raw: bytes, ln: int, final: bool, chk: int
+                          ) -> tuple[bytes, int]:
+        """Oracle-decode ``blob``; on any mismatch re-emit the block
+        uncompressed (a stored deflate chunk or member, or an uncompressed
+        Snappy chunk) with a host-computed checksum. The stream-mode oracle
+        inflates the whole stream incrementally and starts anew on the
+        repaired bytes."""
+        mode = self.format.kernel_mode
         self.verify_stats["checked"] += 1
         try:
-            d = zlib.decompressobj(-15)
-            payload = blob[self._cfg.header_len: len(blob) - 8]
-            ok = d.decompress(payload) + d.flush() == raw
-        except zlib.error:
+            if mode == "stream":
+                if self._verify_stream is None:
+                    self._verify_stream = zlib.decompressobj(-15)
+                ok = self._verify_stream.decompress(blob) == raw
+            elif mode == "snappy":
+                ok = decode_frames(blob) == raw
+            else:
+                d = zlib.decompressobj(-15)
+                payload = blob[self._cfg.header_len: len(blob) - 8]
+                ok = d.decompress(payload) + d.flush() == raw
+        except Exception:  # noqa: BLE001 - any decode error means repair
             ok = False
         if ok:
             return blob, chk
@@ -323,14 +424,35 @@ class ParCompress:
             "verify: device-encoded block failed oracle decode; "
             "re-emitting stored (totals: %r)", self.verify_stats,
         )
-        blob = host_codec.stored_member(raw, self.format.kernel_mode, self.level)
-        return blob, zlib.crc32(raw)
+        c = self.format.check_cls()
+        c.update(raw)
+        if mode == "stream":
+            blob = host_codec.stored_deflate(raw, final)
+            self._verify_stream = zlib.decompressobj(-15)
+            self._verify_stream.decompress(blob)
+        elif mode == "snappy":
+            return self._snappy_uncompressed(raw, chk), chk
+        else:
+            blob = host_codec.stored_member(raw, mode, self.level)
+        return blob, c.sum()
 
-    def _maybe_fallback(self, blob: bytes, raw: bytes, ln: int) -> bytes:
-        """Swap in a stored member when smaller (the per-block
+    def _maybe_fallback(self, blob: bytes, raw: bytes, ln: int, final: bool, chk: int
+                        ) -> bytes:
+        """Swap in a stored encoding when smaller (the per-block
         stored/compressed choice zlib makes); enforce the BGZF cap
-        (reference src/bgzf.rs:218-223)."""
+        (reference src/bgzf.rs:218-223). For Snappy, switch to an
+        uncompressed chunk when compression expanded the block."""
         mode = self.format.kernel_mode
+        if mode == "snappy":
+            if ln and len(blob) > 10 + 4 + 4 + ln:
+                blob = self._snappy_uncompressed(raw, chk)
+            return blob
+        if mode == "stream":
+            if ln and len(blob) > host_codec.stored_size(ln):
+                stored = host_codec.stored_deflate(raw, final)
+                if len(stored) < len(blob):
+                    blob = stored
+            return blob
         if ln and len(blob) > self._cfg.header_len + 8 + host_codec.stored_size(ln):
             stored = host_codec.stored_member(raw, mode, self.level)
             if len(stored) < len(blob):

@@ -1,5 +1,6 @@
 """Inputs that put the tile-parallel kernels' cross-tile arguments at their
-edges: the match tails' window (:func:`tail_edge_batch`), the pack
+edges: the match tails' window (:func:`tail_edge_batch`, and
+:func:`behind_halo` for the stream encoder's halo'd rows), the pack
 pre-scan's look-back (:func:`pack_edge_batch`) and the sorted-neighbour
 kernel's lags halo (:func:`neighbor_edge_batch`).
 
@@ -110,6 +111,30 @@ def tail_edge_batch(kinds, n: int, *, payload_bytes: int, max_match: int = 258,
             lengths[i] = n - int(rng.integers(1, min(t, n)))
     return dict(data=data, packed_hash=hsh, packed_suffix=suf, lengths=lengths,
                 halo_start=halo)
+
+
+def behind_halo(batch: dict, base: int, halo_start: int, *, payload_bytes: int,
+                seed: int = 0) -> dict:
+    """:func:`tail_edge_batch` rows moved behind a ``base``-byte halo, as
+    the stream encoder's rows are: random halo bytes and random candidate
+    words in front, every row's ``halo_start`` set to ``halo_start`` (0 =
+    the whole halo is a source, ``base`` = none of it), ``lengths`` kept
+    (they count from ``base``). ``base`` must be a multiple of 1024, so the
+    rows' padding is unchanged."""
+    if base % 1024:
+        raise ValueError(f"base={base}: a multiple of 1024 keeps Np = base + Np(n)")
+    rows, n = batch["data"].shape
+    rng = np.random.default_rng(seed)
+    npad = padded_len(base + n)
+    out = dict(lengths=batch["lengths"].copy(),
+               halo_start=np.full(rows, halo_start, np.int32))
+    out["data"] = np.concatenate(
+        [rng.integers(0, 256, (rows, base), dtype=np.uint8), batch["data"]], axis=1)
+    for key in ("packed_hash", "packed_suffix"):
+        plane = _words(rng, (rows, npad), payload_bytes)
+        plane[:, base:] = batch[key]
+        out[key] = plane
+    return out
 
 
 def _widths(rng, e: int) -> np.ndarray:

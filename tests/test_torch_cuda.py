@@ -19,12 +19,14 @@ import numpy as np
 import pytest
 import torch
 
-from gzp_tpu_torch import Mgzip, ZBuilder
+from gzp_tpu_torch import Gzip, Mgzip, Snap, ZBuilder
 from gzp_tpu_torch.ops import deflate_kernel as dk
 from gzp_tpu_torch.ops import lz_cuda, pack_cuda
+from gzp_tpu_torch.ops import snappy_kernel as sk_
 from gzp_tpu_torch.ops.lz import _pos_bits
 from gzp_tpu_torch.utils.testing import (
-    KINDS, NEIGHBOR_KINDS, PACK_KINDS, neighbor_edge_batch, pack_edge_batch, tail_edge_batch,
+    KINDS, NEIGHBOR_KINDS, PACK_KINDS, behind_halo, neighbor_edge_batch, pack_edge_batch,
+    tail_edge_batch,
 )
 
 pytestmark = pytest.mark.cuda
@@ -283,3 +285,155 @@ def test_tails_at_tile_edges(stages, fields, payload_bytes, n):
     got = cuda(*args, **kw)
     assert lib.launches == before + 1
     _same(got, plain(*args, **kw))
+
+
+D = 32768  # the stream halo
+HALO_STARTS = {"carry": None, "1000": 1000, "base": D}
+
+
+@pytest.fixture(scope="module")
+def stream(stages):
+    """Stream rows [halo, data] [B, D + N]: each row's halo is the 32 KiB
+    of text before its block, as the writer's halo carries it."""
+    text = _text(B * N + D, 5)
+    data = torch.from_numpy(text[D:].reshape(B, N).copy()).to(stages["data"].device)
+    halo = torch.from_numpy(np.stack([text[i * N: i * N + D] for i in range(B)]))
+    ext = torch.cat([halo.to(data.device), data], dim=1)
+    lengths = stages["lengths"]
+    return dict(data=data, ext=ext, lengths=lengths)
+
+
+def _halo_start(kind, device):
+    """As the writer's ``_make_halo`` gives it ("carry": row 0 without a
+    carry, so halo_start = D; the other rows 0), or one value for all."""
+    hs = torch.zeros((B,), dtype=torch.int32, device=device)
+    hs[:] = D if kind == "base" else 1000 if kind == "1000" else 0
+    if kind == "carry":
+        hs[0] = D
+    return hs
+
+
+def _check(cuda, plain, *args, **kw):
+    """Kernel against plain version on the same inputs; the kernel's result."""
+    got, want = cuda(*args, **kw), plain(*args, **kw)
+    as_tuple = lambda x: (x,) if isinstance(x, torch.Tensor) else x  # noqa: E731
+    _same(as_tuple(got), as_tuple(want))
+    return got
+
+
+def _hash_stages(ext, lengths, hs, *, base, pw, lags, max_dist, max_match, min_emit, lazy):
+    """K1, sort, K2, order restore, K6, each kernel held against its plain
+    version; returns (match_len, match_dist)."""
+    pos_bits = _pos_bits(ext.shape[1])
+    key, pays = _check(lz_cuda.build_keys_cuda, lz_cuda.build_keys_plain, ext,
+                       pos_bits=pos_bits, payload_words=pw)
+    sk, order = torch.sort(key.to(torch.int64) & 0xFFFFFFFF, dim=1)
+    spays = torch.gather(pays, 2, order.expand(pw, -1, -1))
+    sp, packed = _check(lz_cuda.neighbor_cuda, lz_cuda.neighbor_plain, sk, spays, hs,
+                        pos_bits=pos_bits, lags=lags, max_dist=max_dist)
+    return _check(lz_cuda.match_tail_cuda, lz_cuda.match_tail_plain, ext,
+                  lz_cuda.restore_order(sp, packed), lengths, hs, base=base,
+                  payload_bytes=4 * pw, max_match=max_match, min_emit=min_emit, lazy=lazy)
+
+
+@pytest.mark.parametrize("kind", list(HALO_STARTS))
+def test_hash_matcher_at_stream_shape(stream, kind):
+    """Level 3's K1 (18 position bits), K2, K6 at base 32768 and K10."""
+    ext, lengths = stream["ext"], stream["lengths"]
+    hs = _halo_start(kind, ext.device)
+    cfg = dk.DeflateEncodeConfig.for_level(N, "stream", "crc32", 3, dict_size=D)
+    assert _pos_bits(ext.shape[1]) == 18
+    ml, md = _hash_stages(ext, lengths, hs, base=D, pw=3, lags=2, max_dist=32768,
+                          max_match=258, min_emit=3, lazy=True)
+    assert int(ml[:, :D].abs().sum()) == 0
+    marked, ln = dk.parse_stage(cfg, ml, lengths)
+    finals = torch.zeros((B,), dtype=torch.bool, device=ext.device)
+    bits, nbits = dk.block_entries(cfg, ext, marked, ln, md, finals)
+    _check(pack_cuda.pack_prescan_cuda, pack_cuda.pack_prescan_plain, bits, nbits, 0)
+
+
+@pytest.mark.parametrize("kind", list(HALO_STARTS))
+def test_suffix_matcher_at_stream_shape(stream, kind):
+    """Level 6's K7, K4, K8, K1, K5, K9 at base 32768, and K10."""
+    ext, lengths = stream["ext"], stream["lengths"]
+    hs = _halo_start(kind, ext.device)
+    keys, pos = _check(lz_cuda.build_suffix_keys_cuda, lz_cuda.build_suffix_keys_plain, ext,
+                       payload_words=PW6)
+    order = lz_cuda.suffix_order(keys, pos, 5)
+    skeys = torch.gather(keys, 2, order.expand(PW6, -1, -1))
+    sp = torch.gather(pos, 1, order)
+    adj = _check(lz_cuda.lcp_lags_cuda, lz_cuda.lcp_lags_plain, skeys, 1, big_endian=True)[0]
+    packed_s = _check(lz_cuda.suffix_merge_cuda, lz_cuda.suffix_merge_plain, sp, adj, hs,
+                      lags=16, max_dist=32768, payload_bytes=4 * PW6)
+    pos_bits = _pos_bits(ext.shape[1])
+    key, pays = _check(lz_cuda.build_keys_cuda, lz_cuda.build_keys_plain, ext,
+                       pos_bits=pos_bits, payload_words=PW6)
+    sk, horder = torch.sort(key.to(torch.int64) & 0xFFFFFFFF, dim=1)
+    spays = torch.gather(pays, 2, horder.expand(PW6, -1, -1))
+    lcps = _check(lz_cuda.lcp_lags_cuda, lz_cuda.lcp_lags_plain, spays, 2, big_endian=False)
+    sp_h, packed_h = _check(lz_cuda.hash_merge_cuda, lz_cuda.hash_merge_plain, sk, lcps, hs,
+                            pos_bits=pos_bits, max_dist=32768, payload_bytes=4 * PW6)
+    ml, md = _check(lz_cuda.match_tail2_cuda, lz_cuda.match_tail2_plain, ext,
+                    lz_cuda.restore_order(sp_h, packed_h), lz_cuda.restore_order(sp, packed_s),
+                    lengths, hs, base=D, payload_bytes=4 * PW6, max_match=258, min_emit=3,
+                    lazy=True)
+    cfg = dk.DeflateEncodeConfig.for_level(N, "stream", "crc32", 6, dict_size=D)
+    marked, ln = dk.parse_stage(cfg, ml, lengths)
+    finals = torch.zeros((B,), dtype=torch.bool, device=ext.device)
+    finals[-1] = True
+    bits, nbits = dk.block_entries(cfg, ext, marked, ln, md, finals)
+    _check(pack_cuda.pack_prescan_cuda, pack_cuda.pack_prescan_plain, bits, nbits, 0)
+
+
+@pytest.mark.parametrize("halo_start", [0, 1000, D])
+@pytest.mark.parametrize("fields,payload_bytes", [(1, 12), (1, 8), (2, 28)],
+                         ids=["K6-pb12", "K6-pb8", "K9-pb28"])
+def test_tails_at_tile_edges_behind_a_halo(stages, fields, payload_bytes, halo_start):
+    """``tail_edge_batch`` rows behind a 32 KiB halo, at base 32768: the
+    tile window, the staging at the halo's left edge, and the run merge's
+    ``i - 1 >= lo``."""
+    x = tail_edge_batch(KINDS * 4, N - 1000, payload_bytes=payload_bytes, seed=payload_bytes)
+    x = behind_halo(x, D, halo_start, payload_bytes=payload_bytes, seed=halo_start)
+    x = {k: torch.from_numpy(v).to(stages["data"].device) for k, v in x.items()}
+    planes = [x["packed_hash"], x["packed_suffix"]][:fields]
+    kw = dict(base=D, payload_bytes=payload_bytes, max_match=258, min_emit=3,
+              lazy=payload_bytes != 8)
+    cuda, plain = ((lz_cuda.match_tail_cuda, lz_cuda.match_tail_plain) if fields == 1 else
+                   (lz_cuda.match_tail2_cuda, lz_cuda.match_tail2_plain))
+    _check(cuda, plain, x["data"], *planes, x["lengths"], x["halo_start"], **kw)
+
+
+SNAPPY_N = 65536
+
+
+def test_hash_matcher_at_snappy_limits(stages):
+    """K1, K2 at max_dist 65,535, K6 at max_match 256 and min_emit 4 (its
+    window R = 2 * 256 + 32), then K10 behind the 144-bit frame header."""
+    data = stages["data"][:, :SNAPPY_N].contiguous()
+    lengths = torch.full((B,), SNAPPY_N, dtype=torch.int32, device=data.device)
+    lengths[3] = SNAPPY_N - 999
+    data[3, SNAPPY_N - 999:] = 0
+    hs = torch.zeros((B,), dtype=torch.int32, device=data.device)
+    ml, md = _hash_stages(data, lengths, hs, base=0, pw=3, lags=2, max_dist=65535,
+                          max_match=256, min_emit=4, lazy=False)
+    cfg = sk_.SnappyEncodeConfig(block_len=SNAPPY_N)
+    bits, nbits = sk_.snappy_entries(cfg, data, lengths, ml, md)
+    _check(pack_cuda.pack_prescan_cuda, pack_cuda.pack_prescan_plain, bits, nbits,
+           sk_.HEADER_BITS)
+
+
+@pytest.mark.parametrize("fmt,level", [(Gzip, 3), (Gzip, 6), (Snap, 0)],
+                         ids=["gzip-3", "gzip-6", "snappy"])
+def test_streams_equal_cpu_run(stages, fmt, level):
+    """Eight blocks and a 1,000-byte tail with 4 threads (two batches, so
+    the halo crosses a batch boundary): the card's stream is the CPU's."""
+    n = SNAPPY_N if fmt is Snap else N
+    blob = _text(8 * n + 1000, 7).tobytes()
+    outs = []
+    for device in ("cuda", "cpu"):
+        buf = io.BytesIO()
+        w = ZBuilder(fmt).num_threads(4).compression_level(level).device(device).from_writer(buf)
+        w.write(blob)
+        w.finish()
+        outs.append(buf.getvalue())
+    assert outs[0] == outs[1]

@@ -128,7 +128,8 @@ def test_encoder_equals_reference(level, mode, subblocks):
         jnp.asarray(data), jnp.asarray(lengths), jnp.zeros((3,), bool))
     tcfg = tdk.config_from_reference(dataclasses.asdict(jcfg))
     assert tcfg.matcher == ("suffix" if level >= 6 else "hash")
-    rt = tdk.get_encoder(tcfg, compact=True)(torch.from_numpy(data), torch.from_numpy(lengths))
+    rt = tdk.get_encoder(tcfg, compact=True)(torch.from_numpy(data), torch.from_numpy(lengths),
+                                             torch.zeros((3,), dtype=torch.bool))
     for k in ("out", "out_len", "check", "flat"):
         _eq(rj[k], rt[k])
     out, ol = rt["out"].numpy(), rt["out_len"].numpy()
@@ -155,8 +156,11 @@ def test_config_rejects_other_formulations():
     for knob, value in (("hash3", True), ("parse", "window"), ("lookup", "int8")):
         with pytest.raises(ValueError, match=knob):
             tdk.config_from_reference(dataclasses.asdict(dataclasses.replace(jcfg, **{knob: value})))
-    with pytest.raises(NotImplementedError, match="stream"):
-        tdk.get_encoder(tdk.DeflateEncodeConfig.for_level(65536, "stream", "crc32", 3))
+    # stream mode is ported; sub-blocks must divide the block
+    assert callable(tdk.get_encoder(tdk.DeflateEncodeConfig.for_level(65536, "stream", "crc32", 3)))
+    with pytest.raises(ValueError, match="subblocks"):
+        tdk.get_encoder(dataclasses.replace(tdk.config_from_reference(dataclasses.asdict(jcfg)),
+                                            subblocks=3))
 
 
 @pytest.mark.parametrize(

@@ -1,5 +1,5 @@
 """gzp_tpu_torch stands alone: it imports with jax and gzp_tpu blocked, and
-no file of it names either.
+no file of it, nor ``chip_smoke.py`` or ``tools/``, names either.
 
 tests/conftest.py imports jax into every test process, so the import
 check runs in a fresh interpreter.
@@ -11,6 +11,7 @@ import subprocess
 import sys
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "gzp_tpu_torch"
+PATTERN = re.compile(r"import jax|from jax|gzp_tpu\.")
 
 _BLOCKED_IMPORT = """
 import pkgutil, sys
@@ -33,12 +34,24 @@ def test_imports_without_jax_or_gzp_tpu():
     assert not any(m == "jax" or m.startswith("jax.") for m in r.stdout.split())
 
 
-def test_no_file_names_jax_or_gzp_tpu():
-    pattern = re.compile(r"import jax|from jax|gzp_tpu\.")
-    offenders = []
-    for f in PKG.rglob("*"):
+def _offenders(files):
+    out = []
+    for f in files:
         if f.is_file() and f.suffix in (".py", ".cu", ".cuh"):
             for i, line in enumerate(f.read_text().splitlines(), 1):
-                if pattern.search(line):
-                    offenders.append(f"{f.relative_to(PKG.parent)}:{i}: {line.strip()}")
+                if PATTERN.search(line):
+                    out.append(f"{f.relative_to(PKG.parent)}:{i}: {line.strip()}")
+    return out
+
+
+def test_no_file_names_jax_or_gzp_tpu():
+    offenders = _offenders(PKG.rglob("*"))
+    assert not offenders, "\n".join(offenders)
+
+
+def test_chip_smoke_and_tools_name_neither():
+    root = PKG.parent
+    files = [root / "chip_smoke.py", *sorted((root / "tools").glob("*"))]
+    assert len(files) > 1
+    offenders = _offenders(files)
     assert not offenders, "\n".join(offenders)

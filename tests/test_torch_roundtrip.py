@@ -127,7 +127,7 @@ def test_verify_net_checks_and_repairs():
     w.finish()
     assert gzip.decompress(buf.getvalue()) == data
     assert w.verify_stats == {"checked": 4, "repaired": 0}
-    blob, chk = w._verify_or_repair(gzip.compress(b"x" * 1000), b"y" * 1000, 123)
+    blob, chk = w._verify_or_repair(gzip.compress(b"x" * 1000), b"y" * 1000, 1000, True, 123)
     assert w.verify_stats["repaired"] == 1
     assert gzip.decompress(blob) == b"y" * 1000
 
@@ -145,8 +145,12 @@ def test_errors():
     w.finish()
     with pytest.raises(WriterClosedError):
         w.write(b"more")
-    with pytest.raises(NotImplementedError, match="stream"):
-        ZBuilder(gzp_tpu_torch.Gzip).device("cpu").from_writer(io.BytesIO())
+    # stream mode is ported: Gzip writes a stream gzip restores
+    buf = io.BytesIO()
+    w = ZBuilder(gzp_tpu_torch.Gzip).num_threads(2).buffer_size(BS).device("cpu").from_writer(buf)
+    w.write(b"abc" * 1000)
+    w.finish()
+    assert gzip.decompress(buf.getvalue()) == b"abc" * 1000
 
 
 def test_no_cuda_means_no_silent_cpu(monkeypatch):

@@ -7,7 +7,8 @@ T positions, with the candidates on [t0, t0 + T + E) and the bytes on
 torch, tile by tile, and must equal the whole-row plain versions
 ``match_tail_plain`` and ``match_tail2_plain`` on rows built to sit at the
 window's edges (``gzp_tpu_torch.utils.testing.tail_edge_batch``), at a
-small T. A smaller saturation must break the equality, so the test can
+small T, also behind a halo (the stream encoder's ``base`` > 0) and at
+Snappy's limits. A smaller saturation must break the equality, so the test can
 tell. Tolerance: exact equality (integer code).
 """
 
@@ -16,7 +17,7 @@ import pytest
 import torch
 
 from gzp_tpu_torch.ops import lz_cuda
-from gzp_tpu_torch.utils.testing import KINDS, tail_edge_batch
+from gzp_tpu_torch.utils.testing import KINDS, behind_halo, tail_edge_batch
 
 N, TILE = 8192, 1024
 KW = dict(max_match=258, min_emit=3, lazy=True)
@@ -90,15 +91,15 @@ def _batch(kinds, n, payload_bytes, seed=0):
     return {k: torch.from_numpy(v) for k, v in x.items()}
 
 
-def _tails(x, payload_bytes, fields, **extra):
+def _tails(x, payload_bytes, fields, base=0, kw=KW, **extra):
     """(tiled, plain) results of K6 (fields = 1) or K9 (2) on batch x."""
     planes = [x["packed_hash"], x["packed_suffix"]][:fields]
-    kw = dict(payload_bytes=payload_bytes, **KW)
+    kw = dict(payload_bytes=payload_bytes, **kw)
     tiled = tiled_tail(x["data"], planes, x["lengths"], x["halo_start"], tile=TILE,
-                       **kw, **extra)
+                       base=base, **kw, **extra)
     args = (x["data"], *planes, x["lengths"], x["halo_start"])
     plain = (lz_cuda.match_tail_plain if fields == 1 else lz_cuda.match_tail2_plain)(
-        *args, base=0, **kw)
+        *args, base=base, **kw)
     return tiled, plain
 
 
@@ -114,6 +115,34 @@ def test_tiled_tail_equals_whole_row(group, fields, payload_bytes):
     (ln, dist), (ln_p, dist_p) = _tails(x, payload_bytes, fields)
     assert torch.equal(ln, ln_p)
     assert torch.equal(dist, dist_p)
+
+
+@pytest.mark.parametrize("halo_start", [0, 1000, 2048])
+@pytest.mark.parametrize("fields,payload_bytes", [(1, 12), (2, 28)], ids=["K6-pb12", "K9-pb28"])
+def test_tiled_tail_behind_a_halo(fields, payload_bytes, halo_start):
+    """The stream encoder's rows: the edge rows behind a 2,048-byte halo
+    (two tiles) at base 2048, with halo_start 0 (the whole halo a source),
+    inside the halo, and at base (none of it)."""
+    x = tail_edge_batch(KINDS, N - 300, payload_bytes=payload_bytes, max_match=258, tile=TILE,
+                        seed=halo_start)
+    x = behind_halo(x, 2048, halo_start, payload_bytes=payload_bytes, seed=halo_start)
+    x = {k: torch.from_numpy(v) for k, v in x.items()}
+    (ln, dist), (ln_p, dist_p) = _tails(x, payload_bytes, fields, base=2048)
+    assert torch.equal(ln, ln_p)
+    assert torch.equal(dist, dist_p)
+    assert int(ln_p[:, :2048].abs().sum()) == 0 and int((ln_p > 0).sum()) > 0
+
+
+def test_tiled_tail_at_snappy_limits():
+    """K6 at Snappy's max_match 256 and min_emit 4, not lazy: R = 544."""
+    kw = dict(max_match=256, min_emit=4, lazy=False)
+    assert lz_cuda.tail_window(12, 256)[1:] == (373, 544)
+    x = tail_edge_batch(KINDS, N - 300, payload_bytes=12, max_match=256, tile=TILE, seed=5)
+    x = {k: torch.from_numpy(v) for k, v in x.items()}
+    (ln, dist), (ln_p, dist_p) = _tails(x, 12, 1, kw=kw)
+    assert torch.equal(ln, ln_p)
+    assert torch.equal(dist, dist_p)
+    assert int(ln_p.max()) == 256
 
 
 def test_smaller_saturation_breaks_equality():
