@@ -5,7 +5,8 @@
 
 Phases (any failure raises and exits non-zero; no result line then):
 
-1. device  — the card's name and power limit (nvidia-smi);
+1. device  — the card's name and power limit (nvidia-smi), the host's CPU
+             model and core count;
 2. build   — every kernel from ``gzp_tpu_torch/csrc`` with nvcc for
              sm_90a, printing registers, shared memory and spills;
 3. kernels — at the main paths' shapes (64 blocks of 128 KiB: text, one
@@ -42,7 +43,21 @@ Phases (any failure raises and exits non-zero; no result line then):
              its decoder, every kernel of its path launched, the first 8
              blocks and a 1,000-byte tail at 4 threads equal to the CPU
              run's bytes, the size against one zlib stream (or Snappy's
-             ratio) and GB/s printed;
+             ratio) and GB/s printed; then the read side: 256 MiB of text
+             through ``ZBuilder(Bgzf)`` at level 6 on the card; the inflate
+             K11 held against its plain version (``inflate_case_batch``,
+             16 BGZF blocks, and 64 blocks, timed beside its bound) and,
+             with the device CRC, against the host codec on every block;
+             that stream and the Mgzip level-3 path's read by the native
+             ``ParDecompress`` at 1, 2, 4, 8, 16 and the core count's
+             threads, through read(-1) and 1 MiB reads (the thread curve,
+             GB/s); the BGZF stream through ``backend='device'`` (K11's
+             main path: counts set to 0 just before, read just after; no
+             block may go to the host codec) and the Mgzip stream through
+             it (every 128 KiB block over the caps: all to the host
+             codec); the Gzip level-3 path's stream through
+             ``MultiGzDecoder`` and the Snappy path's through
+             ``SnappyFrameDecoder``, each restoring its input;
 5. result  — one ``kernels`` JSON line, then the last line
              ``{"ok": true, "device": {...}}``.
 """
@@ -52,6 +67,8 @@ from __future__ import annotations
 import gzip
 import io
 import json
+import os
+import platform
 import subprocess
 import sys
 import time
@@ -268,13 +285,16 @@ def pack_edges(dev, base_bits):
                base_bits), {})
 
 
-def members(blob: bytes) -> list[bytes]:
-    """Split an Mgzip stream into members by their BLEN fields."""
+def members(blob: bytes, fmt_name: str = "Mgzip") -> list[bytes]:
+    """Split an Mgzip or BGZF stream into members by their size fields."""
+    import gzp_tpu_torch
+
+    fmt = getattr(gzp_tpu_torch, fmt_name)
     out, pos = [], 0
     while pos < len(blob):
-        blen = int.from_bytes(blob[pos + 16: pos + 20], "little")
-        out.append(blob[pos: pos + blen])
-        pos += blen
+        size = fmt.get_block_size(blob[pos: pos + fmt.header_size])
+        out.append(blob[pos: pos + size])
+        pos += size
     return out
 
 
@@ -673,7 +693,7 @@ def stream_checks(text, dev):
 
 def drive(level, corpus, kernels, smi):
     """The main path at ``level``: every count set to 0 just before, read
-    just after. Returns {kernel name: launches}."""
+    just after. Returns ({kernel name: launches}, the Mgzip stream)."""
     from gzp_tpu_torch import Mgzip, ZBuilder
     from gzp_tpu_torch.runtime import cuda_lib
 
@@ -713,7 +733,7 @@ def drive(level, corpus, kernels, smi):
           f"{gbps:.4f} GB/s end to end on {smi}", flush=True)
     if level >= 6 and len(out) > zsize:
         raise AssertionError(f"level {level}: {len(out)} B exceeds zlib's {zsize} B")
-    return launches
+    return launches, out
 
 
 def drive_stream(name, fmt, level, corpus, kernels, smi, wbits, flush_at=None):
@@ -723,8 +743,8 @@ def drive_stream(name, fmt, level, corpus, kernels, smi, wbits, flush_at=None):
     was launched, and that the first 8 blocks and a 1,000-byte tail written
     with 4 threads (two batches: the halo crosses a batch boundary) equal
     the CPU run's bytes; prints the size (against one whole zlib stream at
-    the same level, or Snappy's ratio) and GB/s. Returns {kernel name:
-    launches}."""
+    the same level, or Snappy's ratio) and GB/s. Returns ({kernel name:
+    launches}, the stream)."""
     from gzp_tpu_torch import ZBuilder
     from gzp_tpu_torch.runtime import cuda_lib
     from gzp_tpu_torch.utils.snappy_ref import decode_frames
@@ -790,14 +810,252 @@ def drive_stream(name, fmt, level, corpus, kernels, smi, wbits, flush_at=None):
     blocks = -(-len(corpus) // block)
     print(f"path {name}: host {fmt.check_cls.__name__}.combine {per_block * 1e3:.4f} ms per "
           f"block, {per_block * blocks:.3f} s for the path's {blocks} blocks", flush=True)
-    return launches
+    return launches, out
+
+
+# K11's function needs, per literal/length symbol of a table-driven decode,
+# the peek (shift and mask: 2), the table lookup (1) and the advance (1),
+# and for a match its length's extra bits (shift, mask, add: 3), the
+# distance code's peek, lookup and advance (4) and its extra bits (3): 14
+# operations, counted here for every symbol as if each were a match (the
+# plain version counts symbols, not matches), so an upper estimate
+K11_OPS_PER_SYMBOL = 14
+INFLATE_CAP = 65536  # ParDecompress(backend='device')'s IN_CAP and OUT_CAP
+
+
+def host_line() -> str:
+    """The host's CPU (model, vendor, family and model numbers as
+    ``/proc/cpuinfo`` gives them, and the machine type) and core count:
+    the thread curve is a host number."""
+    info: dict[str, str] = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            info.setdefault(key.strip(), value.strip())
+    cpu = ", ".join(f"{k} {info[k]}" for k in ("model name", "vendor_id", "cpu family", "model")
+                    if info.get(k))
+    return f"{cpu or 'no CPU model in /proc/cpuinfo'} ({platform.machine()}), {os.cpu_count()} cores"
+
+
+def inflate_batch(blocks, dev):
+    """BGZF members as K11's inputs on ``dev`` (``stage_blocks``: payloads
+    [n, 65536] u8, in_lens and out_lens [n] int32)."""
+    from gzp_tpu_torch import Bgzf
+    from gzp_tpu_torch.parallel.decompress import stage_blocks
+
+    *inputs, over = stage_blocks(Bgzf, blocks, INFLATE_CAP, INFLATE_CAP)
+    assert not over, f"blocks over the caps: {sorted(over)}"
+    return tuple(torch.from_numpy(x).to(dev) for x in inputs)
+
+
+def k11_plain(cfg, args):
+    """One call of K11's plain version on card inputs, timed with CUDA
+    events. Returns (result, ms, the symbols its ok rows decoded)."""
+    from gzp_tpu_torch.ops import inflate_kernel as ik
+
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    want = ik.inflate_blocks_plain(cfg, *args)
+    stop.record()
+    torch.cuda.synchronize()
+    return want, start.elapsed_time(stop), int(want["symbols"][want["ok"]].sum())
+
+
+def k11_check(tag, cfg, args, want):
+    """K11 on ``args`` against its plain version's result ``want``: ok on
+    every row, out and out_count on the rows that are ok (a failed row's
+    bytes are not part of the function). Returns the kernel's result."""
+    from gzp_tpu_torch.ops import inflate_kernel as ik
+
+    got = ik.inflate_blocks_cuda(cfg, *args)
+    ok = want["ok"]
+    err = max(max_abs_err(got["ok"], ok),
+              max_abs_err((got["out"][ok], got["out_count"][ok]),
+                          (want["out"][ok], want["out_count"][ok])))
+    print(f"check K11 inflate {tag}: max_abs_err {err}; {int(ok.sum())} of {len(ok)} rows ok",
+          flush=True)
+    if err != 0:
+        raise AssertionError(f"K11 disagrees with its plain version on {tag}")
+    return got
+
+
+def k11_row(cfg, args, plain_ms, symbols):
+    """K11 timed on a batch of BGZF blocks (CUDA events call by call, and
+    CUDA-graph replay) beside its bound and its plain version's one call."""
+    from gzp_tpu_torch.ops import inflate_kernel as ik
+
+    streams, in_lens, out_lens = args
+    b = streams.shape[0]
+    ms = time_ms(lambda: ik.inflate_blocks_cuda(cfg, *args))
+    replay_ms = graph_ms(lambda: ik.inflate_blocks_cuda(cfg, *args))
+    # each payload byte read once, the lengths, each output row written
+    # once (the zero tail too), out_count and ok
+    nbytes = int(in_lens.sum()) + 8 * b + b * cfg.out_cap + 5 * b
+    nops = symbols * K11_OPS_PER_SYMBOL
+    bound_s = max(nbytes / HBM_BYTES_PER_S, nops / INT32_OPS_PER_S)
+    row = {
+        "name": "K11 inflate", "route": "cuda", "source": SRC + "inflate.cu",
+        "replaces": "gzp_tpu/ops/inflate_kernel.py:139", "launches": None, "max_abs_err": 0,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= nops / INT32_OPS_PER_S else "operations",
+        "library_ms": None, "graph_ms": replay_ms,
+    }
+    print(f"kernel K11 inflate: {b} blocks, {int(out_lens.sum())} B out, {symbols} symbols: "
+          f"{ms:.4f} ms (graph {replay_ms:.4f} ms, plain {plain_ms:.4f} ms one call, bound "
+          f"{row['bound_ms']:.4f} ms by {row['bound_by']}; {nbytes} bytes, {nops} ops at "
+          f"{K11_OPS_PER_SYMBOL} per symbol)", flush=True)
+    return row
+
+
+def read_paths(dev, corpus, mgzip3, gzip3, snappy, small, smi, host):
+    """The read side on the card's streams: K11 held against its plain
+    version (the case batch, 16 and 64 BGZF blocks) and against the host
+    codec on every block of a 256 MiB BGZF level-6 stream written on the
+    card; that stream and the Mgzip level-3 path's read by the native
+    ParDecompress at 1-N threads (read(-1) and 1 MiB reads: the thread
+    curve); the BGZF stream through backend='device' (every count set to 0
+    just before, read just after; no block may go to the host codec) and
+    the Mgzip stream through it (every 128 KiB block over the caps: all to
+    the host codec, as gzp_tpu routes them); the Gzip level-3 path's
+    output through MultiGzDecoder and the Snappy path's through
+    SnappyFrameDecoder. Returns K11's kernels row."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gzp_tpu_torch import Bgzf, Mgzip, MultiGzDecoder, ParDecompress, ZBuilder
+    from gzp_tpu_torch.formats.snap import SnappyFrameDecoder
+    from gzp_tpu_torch.ops import inflate_kernel as ik
+    from gzp_tpu_torch.runtime import cuda_lib, get_native
+    from gzp_tpu_torch.utils.inflate_cases import inflate_case_batch
+
+    cfg = ik.InflateConfig(INFLATE_CAP, INFLATE_CAP)
+    t0 = time.perf_counter()
+    buf = io.BytesIO()
+    w = ZBuilder(Bgzf).num_threads(B).compression_level(6).device(dev).from_writer(buf)
+    w.write(corpus)
+    w.finish()
+    torch.cuda.synchronize()
+    bgzf = buf.getvalue()
+    blocks = members(bgzf, "Bgzf")
+    print(f"read: BGZF level 6 written on the card, {len(corpus)} B -> {len(bgzf)} B, "
+          f"{len(blocks)} blocks, {time.perf_counter() - t0:.1f} s", flush=True)
+
+    c = inflate_case_batch(INFLATE_CAP, INFLATE_CAP, rows=40)
+    args = tuple(torch.from_numpy(c[k]).to(dev) for k in ("streams", "in_lens", "out_lens"))
+    got = k11_check("case batch", cfg, args, k11_plain(cfg, args)[0])
+    if not np.array_equal(got["ok"].cpu().numpy(), c["expect_ok"]):
+        raise AssertionError("K11's ok differs from the case batch's expected rules")
+    # one plain call on the 64-block batch serves the 16-block check too:
+    # its rows are independent, so its first 16 are the plain version's
+    # result on the first 16 blocks
+    args = inflate_batch(blocks[:B], dev)
+    want, plain_ms, symbols = k11_plain(cfg, args)
+    print(f"  K11's plain version on {B} BGZF blocks: {symbols} symbols", flush=True)
+    k11_check("16 BGZF blocks", cfg, inflate_batch(blocks[:16], dev),
+              {k: v[:16] for k, v in want.items()})
+    k11_check(f"{B} BGZF blocks", cfg, args, want)
+    row = k11_row(cfg, args, plain_ms, symbols)
+
+    # K11 (with the device CRC) against the host codec on every block
+    t0 = time.perf_counter()
+    native = get_native()
+    run = ik.get_inflater(cfg)
+
+    def host_inflate(blk):
+        n = int.from_bytes(blk[-4:], "little")
+        return native.inflate(blk[18: len(blk) - 8], n) if n else b""
+
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        for s in range(0, len(blocks), 1024):
+            part = blocks[s: s + 1024]
+            res = run(*inflate_batch(part, dev))
+            out, ok, crc = (res[k].cpu().numpy() for k in ("out", "ok", "crc"))
+            for i, plain in enumerate(pool.map(host_inflate, part)):
+                blk = part[i]
+                if not (ok[i] and out[i, : len(plain)].tobytes() == plain
+                        and int(crc[i]) == int.from_bytes(blk[-8:-4], "little")):
+                    raise AssertionError(f"K11 differs from the host codec on block {s + i}")
+    print(f"check K11 against the host codec on all {len(blocks)} BGZF blocks: equal bytes, "
+          f"every CRC matches its footer ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # the native thread curve (a host number)
+    curve = {}
+    for name, fmt, blob in (("BGZF level 6", Bgzf, bgzf), ("Mgzip level 3", Mgzip, mgzip3)):
+        for nt in sorted({1, 2, 4, 8, 16, os.cpu_count()}):
+            t0 = time.perf_counter()
+            r = ParDecompress(fmt, io.BytesIO(blob), num_threads=nt)
+            whole = r.read()
+            r.close()
+            t_all = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            r = ParDecompress(fmt, io.BytesIO(blob), num_threads=nt)
+            parts = []
+            while piece := r.read(1 << 20):
+                parts.append(piece)
+            r.close()
+            t_1m = time.perf_counter() - t0
+            if whole != corpus or b"".join(parts) != corpus:
+                raise AssertionError(f"{name} at {nt} threads does not restore the input")
+            curve[f"{name}, {nt} threads"] = [len(corpus) / t_all / 1e9, len(corpus) / t_1m / 1e9]
+            print(f"read {name} native, {nt} threads: read(-1) {curve[f'{name}, {nt} threads'][0]:.4f}"
+                  f" GB/s, 1 MiB reads {curve[f'{name}, {nt} threads'][1]:.4f} GB/s", flush=True)
+    print(f"read thread curve (GB/s of output: read(-1), 1 MiB reads) on {host}: "
+          + json.dumps(curve), flush=True)
+
+    # the device backend: the main read path of K11
+    for k in cuda_lib.counts():
+        k.launches = 0
+    t0 = time.perf_counter()
+    r = ParDecompress(Bgzf, io.BytesIO(bgzf), num_threads=B, backend="device", device=dev)
+    whole = r.read()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    row["launches"] = ik.INFLATE.launches
+    stats = dict(r.fallback_stats)
+    r.close()
+    print(f"read BGZF level 6 backend='device', {B} threads: launches "
+          f"{json.dumps({k.name: k.launches for k in cuda_lib.counts()})}; fallback_stats "
+          f"{json.dumps(stats)}; {secs:.3f} s = {len(corpus) / secs / 1e9:.4f} GB/s on {smi}",
+          flush=True)
+    if whole != corpus:
+        raise AssertionError("backend='device' does not restore the BGZF stream")
+    if row["launches"] <= 0 or stats["native"] != 0 or stats["device"] != len(blocks):
+        raise AssertionError(f"backend='device' did not decode every block on the card: {stats}")
+    ik.INFLATE.launches = 0
+    t0 = time.perf_counter()
+    r = ParDecompress(Mgzip, io.BytesIO(mgzip3), num_threads=B, backend="device", device=dev)
+    whole = r.read()
+    secs = time.perf_counter() - t0
+    stats = dict(r.fallback_stats)
+    r.close()
+    if whole != corpus or stats["device"] != 0 or stats["native"] != len(members(mgzip3)):
+        raise AssertionError(f"backend='device' on Mgzip 128 KiB blocks: {stats}")
+    if ik.INFLATE.launches:
+        raise AssertionError("K11 launched on batches that are wholly over the caps")
+    print(f"read Mgzip level 3 backend='device': fallback_stats {json.dumps(stats)} (every 128 "
+          f"KiB block over OUT_CAP {INFLATE_CAP}, routed to the host codec as gzp_tpu routes "
+          f"it; K11 launches 0); {len(corpus) / secs / 1e9:.4f} GB/s", flush=True)
+
+    t0 = time.perf_counter()
+    if MultiGzDecoder(io.BytesIO(gzip3)).read() != corpus:
+        raise AssertionError("MultiGzDecoder does not restore the Gzip level-3 path's stream")
+    secs = time.perf_counter() - t0
+    print(f"read Gzip level 3 (with its flush) through MultiGzDecoder: restored, "
+          f"{len(corpus) / secs / 1e9:.4f} GB/s", flush=True)
+    t0 = time.perf_counter()
+    if SnappyFrameDecoder(io.BytesIO(snappy)).read() != small:
+        raise AssertionError("SnappyFrameDecoder does not restore the Snappy path's stream")
+    secs = time.perf_counter() - t0
+    print(f"read Snappy through SnappyFrameDecoder: restored, {len(small) / secs / 1e9:.4f} GB/s",
+          flush=True)
+    return row
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from gzp_tpu_torch.ops import lz_cuda, pack_cuda
+    from gzp_tpu_torch.ops import inflate_kernel, lz_cuda, pack_cuda  # noqa: F401 (registers K11)
     from gzp_tpu_torch.runtime import cuda_lib
 
     # ---- 1. device
@@ -807,6 +1065,8 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    host = host_line()
+    print(f"host: {host}")
     print(smi, flush=True)
 
     # ---- 2. build
@@ -840,12 +1100,12 @@ def main() -> int:
     corpus = make_corpus(PATH_BYTES)
     print(f"path: {len(corpus)} bytes of corpus made in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    l3 = drive(3, corpus, [lz_cuda.BUILD_KEYS, lz_cuda.NEIGHBOR, lz_cuda.MATCH_TAIL,
+    l3, mgzip3 = drive(3, corpus, [lz_cuda.BUILD_KEYS, lz_cuda.NEIGHBOR, lz_cuda.MATCH_TAIL,
                            pack_cuda.PACK_PRESCAN], smi)
     suffix_kernels = [lz_cuda.BUILD_KEYS, lz_cuda.LCP_LAGS, lz_cuda.HASH_MERGE,
                       lz_cuda.BUILD_SUFFIX_KEYS, lz_cuda.SUFFIX_MERGE, lz_cuda.MATCH_TAIL2,
                       pack_cuda.PACK_PRESCAN]
-    l6 = drive(6, corpus, suffix_kernels, smi)
+    l6, _ = drive(6, corpus, suffix_kernels, smi)
 
     # each row's launches on the path that runs its function: level 3 for
     # K1, K2, K6, K10; level 6 for K4, K5, K7, K8, K9. K3's function is
@@ -869,15 +1129,21 @@ def main() -> int:
     hash_kernels = [lz_cuda.BUILD_KEYS, lz_cuda.NEIGHBOR, lz_cuda.MATCH_TAIL,
                     pack_cuda.PACK_PRESCAN]
     small = corpus[:STREAM_PATH_BYTES]
-    drive_stream("Gzip level 3", Gzip, 3, corpus, hash_kernels, smi, 31,
-                 flush_at=(100 << 20) + 12345)
+    _, gzip3 = drive_stream("Gzip level 3", Gzip, 3, corpus, hash_kernels, smi, 31,
+                            flush_at=(100 << 20) + 12345)
     drive_stream("Gzip level 6", Gzip, 6, corpus, suffix_kernels, smi, 31)
     drive_stream("Zlib level 3", Zlib, 3, small, hash_kernels, smi, 15)
     drive_stream("raw Deflate level 3", RawDeflate, 3, small, hash_kernels, smi, -15)
-    drive_stream("Snappy", Snap, 0, small, hash_kernels, smi, None)
+    _, snappy = drive_stream("Snappy", Snap, 0, small, hash_kernels, smi, None)
+
+    # ---- 4, continued: the read paths (K11, the native thread curve, the
+    # device backend, MultiGzDecoder, SnappyFrameDecoder)
+    t0 = time.perf_counter()
+    rows["K11"] = read_paths(dev, corpus, mgzip3, gzip3, snappy, small, smi, host)
+    print(f"read paths: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 5. result
-    order = ["K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10"]
+    order = ["K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10", "K11"]
     print(json.dumps({"kernels": [rows[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))

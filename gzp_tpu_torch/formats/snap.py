@@ -7,16 +7,23 @@ stream (frame decoders skip repeated stream identifiers). Compression
 level is ignored; there is no stream header/footer or stream checksum
 (per-chunk masked CRC32C lives inside the frames).
 
-Counterpart of ``gzp_tpu/formats/snap.py``'s write side; its streaming
-frame decoder belongs to the read path, which this package does not have
-yet (``utils/snappy_ref.py`` decodes frames for tests and the verify net).
+Counterpart of ``gzp_tpu/formats/snap.py``: the format spec and the
+streaming frame decoder :class:`SnappyFrameDecoder`, the read path over
+the host codec's Snappy decompress (``utils/snappy_ref.py`` decodes frames
+for the writer's verify net, as the reference's does).
 """
 
 from __future__ import annotations
 
+import io
+import struct
+from typing import BinaryIO
+
 from gzp_tpu_torch import check as _check
 from gzp_tpu_torch.constants import BUFSIZE, SNAPPY_MAX_CHUNK
+from gzp_tpu_torch.errors import DecompressError, InvalidCheckError, InvalidHeaderError
 from gzp_tpu_torch.formats.base import FormatSpec
+from gzp_tpu_torch.utils.io import read_exact as _read_exact_io
 
 
 class _Snap(FormatSpec):
@@ -32,3 +39,102 @@ class _Snap(FormatSpec):
 
 
 Snap = _Snap()
+
+
+class SnappyFrameDecoder(io.RawIOBase):
+    """Streaming snappy *frame* decoder — the production decode path.
+
+    Mirrors the reference's snap-crate ``FrameDecoder`` usage (reference
+    examples/snap_decode.rs); block decompression runs in the native C++
+    codec (``gzptpu_snappy_decompress``) and every chunk's masked CRC32C
+    is verified, as the frame spec requires. Accepts concatenated streams
+    (repeated stream identifiers), padding and skippable chunks; raises on
+    reserved unskippable chunks.
+    """
+
+    _STREAM_ID = b"sNaPpY"
+
+    def __init__(self, reader: BinaryIO, verify_crc: bool = True) -> None:
+        self.reader = reader
+        self.verify_crc = verify_crc
+        self._buffer = bytearray()
+        self._eof = False
+        self._seen_stream_id = False
+
+    def _read_exact(self, n: int) -> bytes:
+        # looped read: short returns are legal from pipes/sockets
+        # (the reference's snap crate reads via read_exact loops)
+        data = _read_exact_io(self.reader, n)
+        if len(data) != n:
+            raise DecompressError("truncated snappy frame chunk")
+        return data
+
+    def _checked(self, plain: bytes, want: int, native) -> bytes:
+        if self.verify_crc:
+            got = _check.snappy_mask_crc(native.crc32c(plain, 0))
+            if got != want:
+                raise InvalidCheckError(found=got, expected=want)
+        return plain
+
+    def _next_chunk(self) -> bytes | None:
+        from gzp_tpu_torch.runtime import get_native
+
+        native = get_native()
+        while True:
+            hdr = _read_exact_io(self.reader, 4)
+            if not hdr:
+                self._eof = True
+                return None
+            if len(hdr) < 4:
+                raise DecompressError("truncated snappy chunk header")
+            ctype = hdr[0]
+            clen = hdr[1] | (hdr[2] << 8) | (hdr[3] << 16)
+            if ctype == 0xFF:  # stream identifier
+                if clen != 6 or self._read_exact(clen) != self._STREAM_ID:
+                    raise InvalidHeaderError("bad snappy stream identifier")
+                self._seen_stream_id = True
+                continue
+            if not self._seen_stream_id:
+                raise InvalidHeaderError("snappy frame missing stream identifier")
+            if ctype == 0x00:  # compressed data
+                body = self._read_exact(clen)
+                if clen < 4:
+                    raise DecompressError("short compressed chunk")
+                (want,) = struct.unpack_from("<I", body, 0)
+                plain = native.snappy_decompress(body[4:], SNAPPY_MAX_CHUNK)
+                return self._checked(plain, want, native)
+            if ctype == 0x01:  # uncompressed data
+                body = self._read_exact(clen)
+                if clen < 4:
+                    raise DecompressError("short uncompressed chunk")
+                (want,) = struct.unpack_from("<I", body, 0)
+                plain = body[4:]
+                if len(plain) > SNAPPY_MAX_CHUNK:
+                    raise DecompressError("oversized uncompressed chunk")
+                return self._checked(plain, want, native)
+            if ctype == 0xFE or 0x80 <= ctype <= 0xFD:  # padding / skippable
+                self._read_exact(clen)
+                continue
+            raise DecompressError(f"unskippable reserved snappy chunk 0x{ctype:02x}")
+
+    def read(self, size: int = -1) -> bytes:
+        if size is None or size < 0:
+            chunks = [bytes(self._buffer)]
+            self._buffer.clear()
+            while not self._eof:
+                c = self._next_chunk()
+                if c is None:
+                    break
+                chunks.append(c)
+            return b"".join(chunks)
+        while len(self._buffer) < size and not self._eof:
+            c = self._next_chunk()
+            if c is None:
+                break
+            self._buffer += c
+        out = bytes(self._buffer[:size])
+        del self._buffer[:size]
+        return out
+
+    def readable(self) -> bool:
+        return True

@@ -5,7 +5,10 @@ words and lags 1-127 and on rows built for its lags halo, the tails K6 and
 K9 on rows built to sit at the edges of their tiles and windows, the pack
 pre-scan K10 on rows built for its look-back, and the LCP ladder K4 over
 every word count, lags 1-3 and both byte orders at row lengths that are
-not a multiple of its tile.
+not a multiple of its tile; the inflate K11 on the rows of
+``inflate_case_batch`` and on BGZF blocks at levels 0-9 (against the host
+codec), and ``ParDecompress(backend='device')`` reading BGZF on the card
+with no block routed to the host codec.
 
 Marked ``cuda``; without a CUDA device every test skips (decided in the
 fixture, never at import). Run on the card with ``python -m pytest -m
@@ -19,11 +22,15 @@ import numpy as np
 import pytest
 import torch
 
-from gzp_tpu_torch import Gzip, Mgzip, Snap, ZBuilder
+from gzp_tpu_torch import Bgzf, Gzip, Mgzip, ParDecompress, Snap, ZBuilder
 from gzp_tpu_torch.ops import deflate_kernel as dk
+from gzp_tpu_torch.ops import inflate_kernel as ik
 from gzp_tpu_torch.ops import lz_cuda, pack_cuda
 from gzp_tpu_torch.ops import snappy_kernel as sk_
 from gzp_tpu_torch.ops.lz import _pos_bits
+from gzp_tpu_torch.parallel.decompress import stage_blocks
+from gzp_tpu_torch.runtime import get_native
+from gzp_tpu_torch.utils.inflate_cases import inflate_case_batch
 from gzp_tpu_torch.utils.testing import (
     KINDS, NEIGHBOR_KINDS, PACK_KINDS, behind_halo, neighbor_edge_batch, pack_edge_batch,
     tail_edge_batch,
@@ -32,6 +39,7 @@ from gzp_tpu_torch.utils.testing import (
 pytestmark = pytest.mark.cuda
 
 B, N = 64, 131072
+INFLATE_CAP = 65536  # ParDecompress(backend='device')'s IN_CAP and OUT_CAP
 
 
 def _text(n, seed):
@@ -437,3 +445,133 @@ def test_streams_equal_cpu_run(stages, fmt, level):
         w.finish()
         outs.append(buf.getvalue())
     assert outs[0] == outs[1]
+
+
+# ---- K11: the batched inflate (csrc/inflate.cu) and the device read path
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _bgzf(data: bytes, level: int, device) -> bytes:
+    buf = io.BytesIO()
+    w = ZBuilder(Bgzf).num_threads(B).compression_level(level).device(device).from_writer(buf)
+    w.write(data)
+    w.finish()
+    return buf.getvalue()
+
+
+def _bgzf_batch(blob: bytes, dev):
+    """BGZF members as K11's inputs: payloads [n, 65536], in_lens, out_lens."""
+    blocks, pos = [], 0
+    while pos < len(blob):
+        size = Bgzf.get_block_size(blob[pos: pos + Bgzf.header_size])
+        blocks.append(blob[pos: pos + size])
+        pos += size
+    *inputs, over = stage_blocks(Bgzf, blocks, INFLATE_CAP, INFLATE_CAP)
+    assert not over
+    return blocks, tuple(torch.from_numpy(x).to(dev) for x in inputs)
+
+
+def _inflate_same(got, want):
+    """ok on every row; out and out_count where ok (a failed row's bytes
+    are not part of the function)."""
+    ok = want["ok"]
+    assert torch.equal(got["ok"], ok)
+    assert torch.equal(got["out"][ok], want["out"][ok])
+    assert torch.equal(got["out_count"][ok], want["out_count"][ok])
+
+
+def test_inflate_kernel_case_batch(card):
+    c = inflate_case_batch(INFLATE_CAP, INFLATE_CAP, rows=40)
+    args = tuple(torch.from_numpy(c[k]).to(card) for k in ("streams", "in_lens", "out_lens"))
+    cfg = ik.InflateConfig(INFLATE_CAP, INFLATE_CAP)
+    before = ik.INFLATE.launches
+    got = ik.inflate_blocks_cuda(cfg, *args)
+    assert ik.INFLATE.launches == before + 1
+    _inflate_same(got, ik.inflate_blocks_plain(cfg, *args))
+    assert np.array_equal(got["ok"].cpu().numpy(), c["expect_ok"])
+    # every failed row is zero from its out_len
+    for i in np.nonzero(~c["expect_ok"])[0]:
+        assert not got["out"][i, c["out_lens"][i]:].any()
+
+
+@pytest.mark.parametrize("level", [0, 1, 6, 9])
+def test_inflate_kernel_bgzf_blocks_vs_host_codec(card, level):
+    """64 BGZF blocks of text (stored blocks of 65,280 B at level 0)
+    written on the card, decoded by K11 with the device CRC: every block
+    ok, its bytes the host codec's, its CRC the footer's."""
+    data = _text(B * 65280 - 777, level).tobytes()
+    blocks, args = _bgzf_batch(_bgzf(data, level, "cuda"), card)
+    res = ik.get_inflater(ik.InflateConfig(INFLATE_CAP, INFLATE_CAP))(*args)
+    native = get_native()
+    out, ok, crc = (res[k].cpu().numpy() for k in ("out", "ok", "crc"))
+    assert ok.all()
+    for i, blk in enumerate(blocks):
+        n = int.from_bytes(blk[-4:], "little")
+        want = native.inflate(blk[18: len(blk) - 8], n) if n else b""
+        assert out[i, :n].tobytes() == want
+        assert not out[i, n:].any()
+        assert int(crc[i]) == int.from_bytes(blk[-8:-4], "little")
+    assert b"".join(out[i, : int(args[2][i])].tobytes() for i in range(len(blocks))) == data
+
+
+def test_device_backend_reads_bgzf_on_the_card(card):
+    data = _text(3 * B * 65280 + 12345, 11).tobytes()
+    blob = _bgzf(data, 6, "cuda")
+    before = ik.INFLATE.launches
+    r = ParDecompress(Bgzf, io.BytesIO(blob), num_threads=16, backend="device")
+    assert r.read() == data
+    assert r.fallback_stats["native"] == 0 and r.fallback_stats["device"] > 3 * B
+    assert ik.INFLATE.launches > before
+    r = ParDecompress(Bgzf, io.BytesIO(blob), num_threads=16, backend="device", device=card)
+    pieces = []
+    while piece := r.read(100_000):
+        pieces.append(piece)
+    assert b"".join(pieces) == data and r.fallback_stats["native"] == 0
+
+
+def test_device_backend_raises_on_a_kernel_fault(card, monkeypatch):
+    """A row K11 reports ok but gets wrong (one byte flipped in its out
+    row, the device CRC taken of the wrong row) raises: the host codec
+    restores that block with its footer's CRC, so only K11 can be at
+    fault, and the read does not count it as a fallback."""
+    blob = _bgzf(_text(B * 65280, 12).tobytes(), 6, "cuda")
+    real = ik.get_inflater
+
+    def faulty(cfg):
+        run = real(cfg)
+
+        def wrong(streams_u8, in_lens, out_lens):
+            res = run(streams_u8, in_lens, out_lens)
+            res["out"][3, 7] ^= 1
+            res["crc"] = ik.crc32_device(res["out"], out_lens)
+            return res
+
+        return wrong
+
+    monkeypatch.setattr(ik, "get_inflater", faulty)
+    r = ParDecompress(Bgzf, io.BytesIO(blob), num_threads=16, backend="device", device=card)
+    with pytest.raises(RuntimeError, match="device inflate fault: block 3 "):
+        r.read()
+    r.close()
+
+
+def test_inflate_wrapper_checks_its_tensors(card):
+    cfg = ik.InflateConfig(64, 64)
+    streams = torch.zeros((2, 64), dtype=torch.uint8, device=card)
+    lens = torch.zeros(2, dtype=torch.int32, device=card)
+    before = ik.INFLATE.launches
+    with pytest.raises(ValueError):
+        ik.inflate_blocks(cfg, streams.to("meta"), lens.to("meta"), lens.to("meta"))
+    with pytest.raises(ValueError):
+        ik.inflate_blocks_cuda(cfg, streams[:, :32].contiguous(), lens, lens)
+    with pytest.raises(ValueError):
+        ik.inflate_blocks_cuda(cfg, streams, lens.to(torch.int64), lens)
+    assert ik.INFLATE.launches == before
+    r = ik.inflate_blocks(cfg, streams, lens.to(torch.int64), lens)  # the wrapper converts
+    assert r["ok"].all() and ik.INFLATE.launches == before + 1

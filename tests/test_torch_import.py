@@ -55,3 +55,16 @@ def test_chip_smoke_and_tools_name_neither():
     assert len(files) > 1
     offenders = _offenders(files)
     assert not offenders, "\n".join(offenders)
+
+
+def test_native_codec_is_the_ports_own():
+    """The host codec is built from the port's own copy of the C++ source
+    (verbatim), into the port's ``_build/``, never from or into gzp_tpu's
+    runtime directory."""
+    from gzp_tpu_torch.runtime import get_native, native_lib
+
+    assert PKG in native_lib.SOURCE.parents and native_lib.SOURCE.is_file()
+    ref = PKG.parent / "gzp_tpu" / "runtime" / "native" / "gzptpu_native.cpp"
+    assert native_lib.SOURCE.read_bytes() == ref.read_bytes()
+    assert native_lib.library_path().parent == PKG / "_build"
+    assert pathlib.Path(get_native()._lib._name) == native_lib.library_path()
