@@ -46,14 +46,18 @@ Phases (any failure raises and exits non-zero; no result line then):
              ratio) and GB/s printed; then the read side: 256 MiB of text
              through ``ZBuilder(Bgzf)`` at level 6 on the card; the inflate
              K11 held against its plain version (``inflate_case_batch``,
-             16 BGZF blocks, and 64 blocks, timed beside its bound) and,
+             16 BGZF blocks, and 64 blocks, timed beside its bound and its
+             floor, the longest row's symbols at one table-lookup step
+             each, the step timed on the card by tools/probe_table_step.cu) and,
              with the device CRC, against the host codec on every block;
              that stream and the Mgzip level-3 path's read by the native
              ``ParDecompress`` at 1, 2, 4, 8, 16 and the core count's
              threads, through read(-1) and 1 MiB reads (the thread curve,
              GB/s); the BGZF stream through ``backend='device'`` (K11's
              main path: counts set to 0 just before, read just after; no
-             block may go to the host codec) and the Mgzip stream through
+             block may go to the host codec; then one 64-block batch of it
+             split into the steps ``_DeviceBatch`` takes, each timed to a
+             synchronize) and the Mgzip stream through
              it (every 128 KiB block over the caps: all to the host
              codec); the Gzip level-3 path's stream through
              ``MultiGzDecoder`` and the Snappy path's through
@@ -73,6 +77,7 @@ import subprocess
 import sys
 import time
 import zlib
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -820,6 +825,13 @@ def drive_stream(name, fmt, level, corpus, kernels, smi, wbits, flush_at=None):
 # operations, counted here for every symbol as if each were a match (the
 # plain version counts symbols, not matches), so an upper estimate
 K11_OPS_PER_SYMBOL = 14
+# K11's floor: each stream is one chain of dependent symbol decodes, so no
+# design of its one-stream-per-warp decode beats the longest row's symbols
+# times one table-lookup step (a shared-memory load and the shift and mask
+# that depend on it). The step is measured on the card in the same run
+# (``k11_step``: tools/probe_table_step.cu, a chain of K11_STEPS of them)
+K11_STEPS = 1 << 21
+CLOCK_HZ = 1.98e9  # the H100's boost clock: tools/time_kernels.py's cycles per symbol
 INFLATE_CAP = 65536  # ParDecompress(backend='device')'s IN_CAP and OUT_CAP
 
 
@@ -850,7 +862,8 @@ def inflate_batch(blocks, dev):
 
 def k11_plain(cfg, args):
     """One call of K11's plain version on card inputs, timed with CUDA
-    events. Returns (result, ms, the symbols its ok rows decoded)."""
+    events. Returns (result, ms, the symbols its ok rows decoded, the
+    symbols of its longest ok row)."""
     from gzp_tpu_torch.ops import inflate_kernel as ik
 
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -859,7 +872,9 @@ def k11_plain(cfg, args):
     want = ik.inflate_blocks_plain(cfg, *args)
     stop.record()
     torch.cuda.synchronize()
-    return want, start.elapsed_time(stop), int(want["symbols"][want["ok"]].sum())
+    symbols = want["symbols"][want["ok"]]
+    return (want, start.elapsed_time(stop), int(symbols.sum()),
+            int(symbols.max()) if symbols.numel() else 0)
 
 
 def k11_check(tag, cfg, args, want):
@@ -880,15 +895,55 @@ def k11_check(tag, cfg, args, want):
     return got
 
 
-def k11_row(cfg, args, plain_ms, symbols):
+def k11_step(dev) -> tuple[float, float]:
+    """One table-lookup step of a serial Huffman decode on the card: builds
+    ``tools/probe_table_step.cu`` into ``gzp_tpu_torch/_build`` (the package
+    never loads it) and walks a chain of ``K11_STEPS`` dependent steps on a
+    table of random code lengths 1-10. Returns the ms of one step (CUDA
+    events around the launch, after a warm-up) and its cycles (the chain's
+    clock64())."""
+    import ctypes
+
+    from gzp_tpu_torch.runtime import cuda_lib
+
+    src = Path(__file__).resolve().parent / "tools" / "probe_table_step.cu"
+    lib_path = cuda_lib.BUILD_DIR / "probe_table_step.so"
+    cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([cuda_lib.nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(lib_path), str(src)],
+                   check=True, timeout=300)
+    fn = ctypes.CDLL(str(lib_path)).gzp_table_step
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lens = np.random.default_rng(1234).integers(1, 11, 1024, dtype=np.int64)
+    tab = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+    sink = torch.zeros(1, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(2):  # the second launch is the one kept
+        start.record()
+        err = fn(tab.data_ptr(), 0x9E3779B97F4A7C15, K11_STEPS, cycles.data_ptr(),
+                 sink.data_ptr(), stream.cuda_stream)
+        stop.record()
+        if err != 0:
+            raise RuntimeError(f"gzp_table_step: CUDA error {err}")
+        torch.cuda.synchronize()
+    return start.elapsed_time(stop) / K11_STEPS, int(cycles.item()) / K11_STEPS
+
+
+def k11_row(cfg, args, plain_ms, symbols, longest, dev):
     """K11 timed on a batch of BGZF blocks (CUDA events call by call, and
-    CUDA-graph replay) beside its bound and its plain version's one call."""
+    CUDA-graph replay) beside its bound, its floor (``longest`` symbols in
+    one serial chain, each one table-lookup step as ``k11_step`` measures
+    it) and its plain version's one call."""
     from gzp_tpu_torch.ops import inflate_kernel as ik
 
     streams, in_lens, out_lens = args
     b = streams.shape[0]
     ms = time_ms(lambda: ik.inflate_blocks_cuda(cfg, *args))
     replay_ms = graph_ms(lambda: ik.inflate_blocks_cuda(cfg, *args))
+    step_ms, step_cycles = k11_step(dev)
     # each payload byte read once, the lengths, each output row written
     # once (the zero tail too), out_count and ok
     nbytes = int(in_lens.sum()) + 8 * b + b * cfg.out_cap + 5 * b
@@ -899,13 +954,67 @@ def k11_row(cfg, args, plain_ms, symbols):
         "replaces": "gzp_tpu/ops/inflate_kernel.py:139", "launches": None, "max_abs_err": 0,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
         "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= nops / INT32_OPS_PER_S else "operations",
-        "library_ms": None, "graph_ms": replay_ms,
+        "library_ms": None, "graph_ms": replay_ms, "floor_ms": longest * step_ms,
     }
-    print(f"kernel K11 inflate: {b} blocks, {int(out_lens.sum())} B out, {symbols} symbols: "
-          f"{ms:.4f} ms (graph {replay_ms:.4f} ms, plain {plain_ms:.4f} ms one call, bound "
-          f"{row['bound_ms']:.4f} ms by {row['bound_by']}; {nbytes} bytes, {nops} ops at "
-          f"{K11_OPS_PER_SYMBOL} per symbol)", flush=True)
+    clock_hz = step_cycles / (step_ms * 1e-3)
+    print(f"kernel K11 inflate: {b} blocks, {int(out_lens.sum())} B out, {symbols} symbols "
+          f"({longest} in the longest row): {ms:.4f} ms (graph {replay_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms one call, bound {row['bound_ms']:.4f} ms by {row['bound_by']}; "
+          f"{nbytes} bytes, {nops} ops at {K11_OPS_PER_SYMBOL} per symbol; floor "
+          f"{row['floor_ms']:.4f} ms = the longest row's symbols at one table-lookup step, "
+          f"measured {step_ms * 1e6:.3f} ns = {step_cycles:.1f} cycles at "
+          f"{clock_hz / 1e9:.3f} GHz; {ms * 1e-3 * clock_hz / longest:.1f} cycles per symbol)",
+          flush=True)
     return row
+
+
+def read_split(blocks, cfg, dev, reps: int = 3) -> dict[str, float]:
+    """One batch of the device read split into its steps, as
+    ``_DeviceBatch`` takes them (``parallel/decompress.py``), each timed on
+    the host's clock up to a ``torch.cuda.synchronize()``: the footers and
+    ``stage_blocks``, the host-to-device copies, K11, ``crc32_device``, the
+    ``.cpu()`` copies, and the per-block check and join. Returns the median
+    ms of each over ``reps`` runs after a warm-up."""
+    from gzp_tpu_torch import Bgzf
+    from gzp_tpu_torch.ops import inflate_kernel as ik
+    from gzp_tpu_torch.parallel.decompress import stage_blocks
+
+    want = b"".join(zlib.decompress(blk[18: len(blk) - 8], -15) for blk in blocks)
+    runs: list[dict[str, float]] = []
+    for _ in range(reps + 1):
+        ms: dict[str, float] = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+
+        def lap(name):
+            nonlocal t0
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ms[name] = (t1 - t0) * 1e3
+            t0 = t1
+
+        footers = [Bgzf.get_footer_values(blk) for blk in blocks]
+        *inputs, over = stage_blocks(Bgzf, blocks, cfg.in_cap, cfg.out_cap)
+        lap("stage_blocks")
+        args = tuple(torch.from_numpy(x).to(dev) for x in inputs)
+        lap("host_to_device")
+        res = ik.inflate_blocks(cfg, *args)
+        lap("K11")
+        crc = ik.crc32_device(res["out"], args[2])
+        lap("crc32_device")
+        out, ok, crc = res["out"].cpu().numpy(), res["ok"].cpu().numpy(), crc.cpu().numpy()
+        lap("device_to_host")
+        pieces = []
+        for i, fv in enumerate(footers):
+            if i in over or not ok[i] or int(crc[i]) != fv.sum:
+                raise AssertionError(f"block {i} of the split batch did not decode on the card")
+            pieces.append(out[i, : fv.amount].tobytes())
+        joined = b"".join(pieces)
+        lap("check_and_join")
+        if joined != want:
+            raise AssertionError("the split batch does not restore its blocks")
+        runs.append(ms)
+    return {k: float(np.median([r[k] for r in runs[1:]])) for k in runs[0]}
 
 
 def read_paths(dev, corpus, mgzip3, gzip3, snappy, small, smi, host):
@@ -949,12 +1058,12 @@ def read_paths(dev, corpus, mgzip3, gzip3, snappy, small, smi, host):
     # its rows are independent, so its first 16 are the plain version's
     # result on the first 16 blocks
     args = inflate_batch(blocks[:B], dev)
-    want, plain_ms, symbols = k11_plain(cfg, args)
+    want, plain_ms, symbols, longest = k11_plain(cfg, args)
     print(f"  K11's plain version on {B} BGZF blocks: {symbols} symbols", flush=True)
     k11_check("16 BGZF blocks", cfg, inflate_batch(blocks[:16], dev),
               {k: v[:16] for k, v in want.items()})
     k11_check(f"{B} BGZF blocks", cfg, args, want)
-    row = k11_row(cfg, args, plain_ms, symbols)
+    row = k11_row(cfg, args, plain_ms, symbols, longest, dev)
 
     # K11 (with the device CRC) against the host codec on every block
     t0 = time.perf_counter()
@@ -1021,6 +1130,11 @@ def read_paths(dev, corpus, mgzip3, gzip3, snappy, small, smi, host):
         raise AssertionError("backend='device' does not restore the BGZF stream")
     if row["launches"] <= 0 or stats["native"] != 0 or stats["device"] != len(blocks):
         raise AssertionError(f"backend='device' did not decode every block on the card: {stats}")
+    split = read_split(blocks[:B], cfg, dev)
+    print(f"read BGZF device batch split ({B} blocks, ms, median of 3, host clock to a "
+          f"synchronize after each step): {json.dumps(split)}; sum {sum(split.values()):.3f} ms "
+          f"against {secs / row['launches'] * 1e3:.3f} ms of the read's wall time per batch",
+          flush=True)
     ik.INFLATE.launches = 0
     t0 = time.perf_counter()
     r = ParDecompress(Mgzip, io.BytesIO(mgzip3), num_threads=B, backend="device", device=dev)

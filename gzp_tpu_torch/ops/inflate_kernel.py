@@ -16,8 +16,8 @@ lockstep symbol decode over B lanes with the table-free canonical decode
 lookahead prefix falls in ``[first_code[l], first_code[l] + count[l])``),
 literals written and match starts marked, then copy resolution by pointer
 doubling. :func:`inflate_blocks_cuda` launches ``csrc/inflate.cu``: one
-warp per stream, symbols decoded serially by one lane, copies written by
-the warp. :func:`inflate_blocks` runs the plain version for a CPU tensor
+warp per stream, symbols decoded serially by one lane from per-block
+lookup tables and a register bit buffer, copies written by the warp. :func:`inflate_blocks` runs the plain version for a CPU tensor
 and the kernel for a CUDA tensor, and raises otherwise.
 """
 

@@ -1,10 +1,13 @@
 """Raw Deflate streams that put the batched inflate (K11,
 ``ops/inflate_kernel.py``) at each of its rules: every block type, block
-counts at and past ``max_blocks``, a stream that ends exactly at
-``in_cap``, each condition that makes a row not ok, and the reference's
-quirks that zlib would refuse (a fixed-code length symbol 286, a
-code-length repeat cut at HLIT + HDIST). Streams come from zlib or from
-a small bit writer; inputs are made from a numpy seed.
+counts at and past ``max_blocks``, streams that end exactly at ``in_cap``
+(literals, and matches), each condition that makes a row not ok, the
+reference's quirks that zlib would refuse (a fixed-code length symbol
+286, a code-length repeat cut at HLIT + HDIST), and the edges of a
+table-driven decode's lookup tables (codes of 1-15 bits used on both
+sides of the table's bits, an over-subscribed code, a code missing only
+past the table's bits). Streams come from zlib or from a small bit
+writer; inputs are made from a numpy seed.
 """
 
 from __future__ import annotations
@@ -118,6 +121,91 @@ def _lit_a_eob(repeat_cut: bool) -> tuple[bytes, bytes]:
     return bits.bytes(), b""
 
 
+def _code_lengths_block(lit_lens: list[int], dist_lens: list[int]) -> tuple[_Bits, dict, dict]:
+    """BFINAL=1, BTYPE=2 and the header of these literal/length and
+    distance code lengths, each sent as itself under a complete
+    code-length code (lengths 0-15 at 4 bits); returns the bit writer and
+    the two codes."""
+    bits = _Bits()
+    cl = _dynamic_header(bits, len(lit_lens), len(dist_lens), {s: 4 for s in range(16)})
+    for n in (*lit_lens, *dist_lens):
+        bits.code(cl[n])
+    return bits, _canonical_codes(lit_lens), _canonical_codes(dist_lens)
+
+
+def _letters_block(lens: dict[int, int], used: list[int], end: bool = True) -> tuple[bytes, bytes]:
+    """A dynamic block whose literal/length code is ``lens`` (symbol ->
+    length) with one 1-bit distance code: the literals ``used``, then the
+    end of block (or, without ``end``, 15 one bits, a code the code may
+    lack) -> (stream, its literals)."""
+    lit_lens = [lens.get(s, 0) for s in range(257)]
+    bits, lit, _ = _code_lengths_block(lit_lens, [1])
+    for s in used:
+        bits.code(lit[s])
+    if end:
+        bits.code(lit[256])
+    else:
+        bits.put(0x7FFF, 15)
+    return bits.bytes(), bytes(used)
+
+
+def _table_edge_rows(seed: int) -> list[tuple[str, bytes, int, bool]]:
+    """Rows at the edges of the lookup tables a table-driven decode builds
+    (9-11 bits): codes of 1-15 bits used on both sides, over- and
+    under-subscribed codes -> (name, stream, out_len, ok)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    # literal/length code of lengths 1..15 (letter i at i + 1 bits, the end
+    # of block at 15): complete, every letter used
+    letters = list(range(65, 80))
+    used = letters + [int(x) for x in rng.choice(letters, 200)]
+    stream, plain = _letters_block({**{s: i + 1 for i, s in enumerate(letters)}, 256: 15}, used)
+    assert zlib.decompressobj(-15).decompress(stream) == plain
+    rows.append(("lit_code_15_bits", stream, len(plain), True))
+
+    # distance code of lengths 1..15 over symbols 0-15 (symbol i at i + 1
+    # bits; 14 and 15 at 15 bits, bases 129 and 193 with 6 extra bits),
+    # every distance code used, the long ones twice
+    lit_lens = [9] * 256 + [2, 3, 3]  # literals, end of block, lengths 3 and 4
+    dist_lens = [min(i + 1, 15) for i in range(16)]
+    bits, lit, dcode = _code_lengths_block(lit_lens, dist_lens)
+    dist_base = [1, 2, 3, 4, 5, 7, 9, 13, 17, 25, 33, 49, 65, 97, 129, 193]
+    dist_extra = [0, 0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6, 6]
+    out = bytearray(rng.integers(0, 256, 400, dtype=np.uint8).tobytes())
+    for c in out:
+        bits.code(lit[c])
+    for d in [*rng.permutation(16), 14, 15, 15, 14]:
+        length = int(rng.integers(3, 5))
+        ext = int(rng.integers(0, 1 << dist_extra[d]))
+        dist = dist_base[d] + ext
+        bits.code(lit[254 + length]).code(dcode[int(d)]).put(ext, dist_extra[d])
+        for _ in range(length):
+            out.append(out[-dist])
+        c = int(rng.integers(0, 256))
+        bits.code(lit[c])
+        out.append(c)
+    stream = bits.code(lit[256]).bytes()
+    assert zlib.decompressobj(-15).decompress(stream) == bytes(out)
+    rows.append(("dist_code_15_bits", stream, len(out), True))
+
+    # over-subscribed: letters at 1..13 bits, the end of block at 14 and
+    # three letters at 15, the last of them past 2^15 codes (never
+    # decoded); the first length that fits still decodes the others
+    over = {**{s: i + 1 for i, s in enumerate(letters[:13])}, 256: 14, 78: 15, 79: 15, 80: 15}
+    used = letters + [int(x) for x in rng.choice(letters, 100)]
+    stream, plain = _letters_block(over, used)
+    rows.append(("lit_code_oversubscribed", stream, len(plain), True))
+
+    # incomplete: letters at 1..14 bits and the end of block at 15 leave
+    # the 15-bit code of all ones out; its first 10 bits are those of the
+    # 11-15-bit codes, so it is missing only past the table's bits
+    under = {**{s: i + 1 for i, s in enumerate(letters[:14])}, 256: 15}
+    used = [int(x) for x in rng.choice(letters[:14], 60)]
+    stream, plain = _letters_block(under, used, end=False)
+    rows.append(("lit_code_incomplete_past_table", stream, len(plain) + 1, False))
+    return rows
+
+
 def inflate_case_batch(in_cap: int = 65536, out_cap: int = 65536, *, seed: int = 0,
                        rows: int | None = None) -> dict:
     """One row per case -> dict(names [R], streams [R, in_cap] u8, in_lens
@@ -162,6 +250,12 @@ def inflate_case_batch(in_cap: int = 65536, out_cap: int = 65536, *, seed: int =
     tail = b.code(fixed[256]).bytes()
     lead = rng.integers(0, 256, in_cap - len(tail) - 5, dtype=np.uint8).tobytes()
     add("huffman_to_in_cap", _stored(lead, False) + tail, len(lead) + len(lits), True)
+    # the same with a dynamic block of text, so the symbols read in the
+    # last bytes before in_cap include matches with their distances
+    text = _text(3000, seed + 10)
+    tail = _raw(text, 6)
+    lead = _text(in_cap - len(tail) - 5, seed + 11)
+    matches_to_in_cap = (_stored(lead, False) + tail, len(lead) + len(text))
     add("garbage_full_row", rng.integers(0, 256, in_cap, dtype=np.uint8).tobytes(), 4000, False)
     for name, first in (("garbage_fixed", 0b011), ("garbage_dynamic", 0b101)):
         g = bytearray(rng.integers(0, 256, 4096, dtype=np.uint8).tobytes())
@@ -204,6 +298,9 @@ def inflate_case_batch(in_cap: int = 65536, out_cap: int = 65536, *, seed: int =
     add("in_len_in_header", dyn, 2000, False, in_len=4)
     add("no_final_block", _sync_flushed(_text(800, seed + 9)), 800, False)
     add("garbage", rng.integers(0, 256, 512, dtype=np.uint8).tobytes(), 100, False)
+    for name, stream, out_len, ok in _table_edge_rows(seed + 200):
+        add(name, stream, out_len, ok)
+    add("matches_to_in_cap", *matches_to_in_cap, True)
 
     k = 0
     while rows is not None and len(cases) < rows:

@@ -6,9 +6,10 @@ K9 on rows built to sit at the edges of their tiles and windows, the pack
 pre-scan K10 on rows built for its look-back, and the LCP ladder K4 over
 every word count, lags 1-3 and both byte orders at row lengths that are
 not a multiple of its tile; the inflate K11 on the rows of
-``inflate_case_batch`` and on BGZF blocks at levels 0-9 (against the host
-codec), and ``ParDecompress(backend='device')`` reading BGZF on the card
-with no block routed to the host codec.
+``inflate_case_batch`` (also at caps that are not a multiple of 4) and on
+BGZF blocks at levels 0-9 (against the host codec), and
+``ParDecompress(backend='device')`` reading BGZF on the card with no block
+routed to the host codec.
 
 Marked ``cuda``; without a CUDA device every test skips (decided in the
 fixture, never at import). Run on the card with ``python -m pytest -m
@@ -498,6 +499,18 @@ def test_inflate_kernel_case_batch(card):
     # every failed row is zero from its out_len
     for i in np.nonzero(~c["expect_ok"])[0]:
         assert not got["out"][i, c["out_lens"][i]:].any()
+
+
+def test_inflate_kernel_odd_caps(card):
+    """The case batch at in_cap 4,099 and out_cap 4,101 with max_blocks 16:
+    rows that do not start on a 4-byte boundary, so the kernel's reader
+    loads bytes, not words; the same function as the plain version."""
+    c = inflate_case_batch(4099, 4101, rows=40)
+    args = tuple(torch.from_numpy(c[k]).to(card) for k in ("streams", "in_lens", "out_lens"))
+    cfg = ik.InflateConfig(4099, 4101, max_blocks=16)
+    got = ik.inflate_blocks_cuda(cfg, *args)
+    _inflate_same(got, ik.inflate_blocks_plain(cfg, *args))
+    assert np.array_equal(got["ok"].cpu().numpy(), c["expect_ok"])
 
 
 @pytest.mark.parametrize("level", [0, 1, 6, 9])

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time this package's redesigned kernels of one checkout of gzp_tpu_torch on a card.
 
-    python3 tools/time_kernels.py [--root DIR] [--kernels K2,K3,K6,K9,K10,K4,K2pw7] \
+    python3 tools/time_kernels.py [--root DIR] [--kernels K2,K3,K6,K9,K10,K4,K2pw7,K11] \
         [--tiles 2048,4096,8192] [--iters 20]
 
 Imports ``gzp_tpu_torch`` from ``--root`` (default: this repository), so
@@ -16,7 +16,14 @@ content-sorted words for K4 big-endian at lag 1 and its hash-sorted
 payloads for K4 little-endian at lags 1-2 (one call each). ``K2pw7`` times
 ``csrc/neighbor.cu`` launched directly on level 6's hash-sorted keys and 7
 payload words at lags 2 beside the route ``neighbor_cuda`` takes there (K4
-+ K5), both held against ``neighbor_plain``.
++ K5), both held against ``neighbor_plain``. ``K11`` writes 64 BGZF
+level-6 blocks of the same text (65,280 B each, about 4 MiB) with that
+checkout's ``ZBuilder(Bgzf)`` on the card, stages them with its
+``stage_blocks`` (the device read's [64, 65536] batch) and holds the
+inflate kernel against ``inflate_blocks_plain`` (``ok`` on every row, all
+of them ok; ``out`` and ``out_count`` where ok), then prints the Huffman
+symbols the plain version counted (in all, and in the longest row) and
+the kernel's cycles per symbol of the longest row at 1.98 GHz.
 Holds each kernel against its plain version (exact), then times it: ``ms``
 is CUDA events around back-to-back wrapper calls (``chip_smoke.time_ms``,
 the ``ms`` of ``chip_smoke.py``'s kernels line), ``graph_ms`` device time
@@ -33,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import io
 import json
 import subprocess
 import sys
@@ -109,6 +117,48 @@ def neighbor_launch(sk, pays, halo_start, *, pos_bits, lags, max_dist):
     return sp, packed
 
 
+K11_BLOCK = 65280  # a full BGZF member's input
+
+
+def k11_batch(smoke, dev):
+    """64 BGZF level-6 blocks of bench text written on the card by this
+    checkout's ``ZBuilder(Bgzf)`` and staged by its ``stage_blocks`` ->
+    (streams, in_lens, out_lens) on ``dev``."""
+    from gzp_tpu_torch import Bgzf, ZBuilder
+    from gzp_tpu_torch.parallel.decompress import stage_blocks
+
+    buf = io.BytesIO()
+    w = ZBuilder(Bgzf).num_threads(B).compression_level(6).device(dev).from_writer(buf)
+    w.write(smoke.make_corpus(B * K11_BLOCK))
+    w.finish()
+    blocks = smoke.members(buf.getvalue(), "Bgzf")[:B]  # the empty EOF member left out
+    *inputs, over = stage_blocks(Bgzf, blocks, 65536, 65536)
+    assert not over and len(blocks) == B, (len(blocks), over)
+    return tuple(torch.from_numpy(x).to(dev) for x in inputs)
+
+
+def k11_row(smoke, dev, iters):
+    """K11 on the device read's batch: held against its plain version,
+    then timed (``ms``, ``graph_ms``) beside the symbols it decodes."""
+    from gzp_tpu_torch.ops import inflate_kernel as ik
+
+    args = k11_batch(smoke, dev)
+    cfg = ik.InflateConfig(65536, 65536)
+    got = ik.inflate_blocks_cuda(cfg, *args)
+    want = ik.inflate_blocks_plain(cfg, *args)
+    ok = want["ok"]
+    if not (bool(ok.all()) and torch.equal(got["ok"], ok) and torch.equal(got["out"], want["out"])
+            and torch.equal(got["out_count"], want["out_count"])):
+        raise AssertionError("K11 disagrees with its plain version on the BGZF batch")
+    symbols = want["symbols"]
+    ms = smoke.time_ms(lambda: ik.inflate_blocks_cuda(cfg, *args), iters=iters, warmup=3)
+    replay_ms = smoke.graph_ms(lambda: ik.inflate_blocks_cuda(cfg, *args), iters=iters)
+    longest = int(symbols.max())
+    return {"ms": ms, "graph_ms": replay_ms, "symbols": int(symbols.sum()),
+            "symbols_longest_row": longest, "out_bytes": int(args[2].sum()),
+            "cycles_per_symbol": ms * 1e-3 * smoke.CLOCK_HZ / longest}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE))
@@ -123,7 +173,7 @@ def main() -> int:
         return 1
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
-    from gzp_tpu_torch.ops import lz_cuda, pack_cuda
+    from gzp_tpu_torch.ops import inflate_kernel, lz_cuda, pack_cuda  # noqa: F401 (registers K11)
     from gzp_tpu_torch.ops.lz import _pos_bits
     from gzp_tpu_torch.runtime import cuda_lib
 
@@ -139,7 +189,7 @@ def main() -> int:
     if args.ptxas:
         libs = [k for k in cuda_lib.registered()
                 if k.name in ("neighbor", "match_tail", "match_tail2", "pack_prescan",
-                              "lcp_lags")]
+                              "lcp_lags", "inflate")]
         for name, log in cuda_lib.build(libs, force=True, ptxas_verbose=True).items():
             for line in log.splitlines():
                 if "Compiling entry" in line or "Used" in line or "spill" in line:
@@ -214,6 +264,8 @@ def main() -> int:
         if default_tile is not None:
             lz_cuda.TAIL_TILE = default_tile
         out[name] = row
+    if "K11" in wanted:
+        out["K11"] = k11_row(smoke, torch.device("cuda", 0), args.iters)
     print(json.dumps(out), flush=True)
     return 0
 
