@@ -36,14 +36,29 @@ Phases (any failure raises and exits non-zero; no result line then):
              every kernel of the path must have been launched, the first
              blocks must equal a CPU run's bytes, and the size is compared
              with zlib's at the same level per 128 KiB block (level 6 must
-             not exceed it); then ``ZBuilder(Gzip)`` at level 3 (256 MiB
+             not exceed it); the mesh path: the same 256 MiB through
+             ``ZBuilder(Mgzip).num_threads(64).mesh(devs)`` at levels 3 and
+             6, ``devs`` two cards where there are two, else ``[cuda:0,
+             cuda:0]`` (counts set to 0 just before, read just after), each
+             stream's sha256 equal to the one-device stream's of its level,
+             every kernel of the level's path launched, GB/s and the number
+             of sub-batches printed; then ``ZBuilder(Gzip)`` at level 3 (256 MiB
              with one ``flush()`` after 100 MiB + 12,345 B) and level 6
              (256 MiB), ``ZBuilder(Zlib)`` and ``ZBuilder(RawDeflate)`` at
              level 3 and ``ZBuilder(Snap)`` (64 MiB each): each restored by
              its decoder, every kernel of its path launched, the first 8
              blocks and a 1,000-byte tail at 4 threads equal to the CPU
              run's bytes, the size against one zlib stream (or Snappy's
-             ratio) and GB/s printed; then the read side: 256 MiB of text
+             ratio) and GB/s printed; the multi-host path: the 64 MiB as a
+             file, two processes of ``python -m
+             gzp_tpu_torch.parallel.multihost`` (Gzip, level 3, 64
+             threads, a gloo group on a free local port, each on the card)
+             whose shards the parent stitches: the stream must restore the
+             input and equal a one-process card run byte for byte, each
+             worker must report K1, K2, K6 and K10 launched, and a worker
+             that fails or outlasts its timeout fails the run; wall time
+             with and without process start; ``dryrun_multichip(2)`` on
+             the card; then the read side: 256 MiB of text
              through ``ZBuilder(Bgzf)`` at level 6 on the card; the inflate
              K11 held against its plain version (``inflate_case_batch``,
              16 BGZF blocks, and 64 blocks, timed beside its bound and its
@@ -69,6 +84,7 @@ Phases (any failure raises and exits non-zero; no result line then):
 from __future__ import annotations
 
 import gzip
+import hashlib
 import io
 import json
 import os
@@ -698,7 +714,8 @@ def stream_checks(text, dev):
 
 def drive(level, corpus, kernels, smi):
     """The main path at ``level``: every count set to 0 just before, read
-    just after. Returns ({kernel name: launches}, the Mgzip stream)."""
+    just after. Returns ({kernel name: launches}, the Mgzip stream, its
+    seconds)."""
     from gzp_tpu_torch import Mgzip, ZBuilder
     from gzp_tpu_torch.runtime import cuda_lib
 
@@ -738,7 +755,143 @@ def drive(level, corpus, kernels, smi):
           f"{gbps:.4f} GB/s end to end on {smi}", flush=True)
     if level >= 6 and len(out) > zsize:
         raise AssertionError(f"level {level}: {len(out)} B exceeds zlib's {zsize} B")
-    return launches, out
+    return launches, out, secs
+
+
+def drive_mesh(level, corpus, kernels, smi, want_sha, one_secs):
+    """The mesh path at ``level``: ``ZBuilder(Mgzip).num_threads(64).mesh(
+    mesh_devices(2))`` (two cards where the machine has two, else the one
+    card twice), every count set to 0 just before, read just after.
+    Its stream must be the one-device stream of phase 4 (``want_sha``, its
+    sha256) and every kernel of the level's path must have been launched."""
+    from gzp_tpu_torch import Mgzip, ZBuilder
+    from gzp_tpu_torch.parallel.mesh import mesh_devices
+    from gzp_tpu_torch.runtime import cuda_lib
+
+    devs = mesh_devices(2)
+
+    def compress(blob: bytes):
+        buf = io.BytesIO()
+        w = ZBuilder(Mgzip).num_threads(B).compression_level(level).mesh(devs).from_writer(buf)
+        w.write(blob)
+        w.finish()
+        return buf.getvalue(), w
+
+    compress(corpus[: B * N])  # warm-up: allocator, pinned buffers
+    for d in set(devs):
+        torch.cuda.synchronize(d)
+    for k in cuda_lib.counts():
+        k.launches = 0
+    t0 = time.perf_counter()
+    out, w = compress(corpus)
+    for d in set(devs):
+        torch.cuda.synchronize(d)
+    secs = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in cuda_lib.counts()}
+    print(f"mesh level {level}: launches {json.dumps(launches)}", flush=True)
+    missing = [k.name for k in kernels if launches[k.name] <= 0]
+    if missing:
+        raise AssertionError(f"mesh level {level}: kernels of the path never launched: {missing}")
+    if hashlib.sha256(out).hexdigest() != want_sha:
+        raise AssertionError(f"mesh level {level}: the stream differs from the one-device "
+                             "stream of the same level")
+    batches = -(-len(corpus) // (w.batch * w.block_size))
+    print(f"mesh level {level} over {', '.join(map(str, devs))}: {len(corpus)} B -> {len(out)} B, "
+          f"sha256 equal to the one-device stream; {batches} batches of {w.batch} blocks = "
+          f"{batches * len(devs)} sub-batches of {w.batch // len(devs)}; {secs:.3f} s = "
+          f"{len(corpus) / secs / 1e9:.4f} GB/s end to end ({one_secs / secs:.4f}x the one-device "
+          f"path's {len(corpus) / one_secs / 1e9:.4f} GB/s in this run) on {smi}", flush=True)
+    return launches
+
+
+WORKER_TIMEOUT = 600  # seconds for the two worker processes together
+
+
+def drive_multihost(data, smi):
+    """Two processes of ``python -m gzp_tpu_torch.parallel.multihost``
+    (Gzip, level 3, 64 threads, each on ``cuda:<rank mod devices>``) over
+    ``data`` in a temporary file; the parent stitches their shards. The
+    stitched stream must restore the input and equal a one-process
+    ``ZBuilder(Gzip)`` card run byte for byte, and each worker must report
+    K1, K2, K6 and K10 launched. A worker that fails or outlasts
+    WORKER_TIMEOUT fails the run (both are killed). Returns each worker's
+    report."""
+    import socket
+    import tempfile
+
+    from gzp_tpu_torch import Gzip, ZBuilder
+    from gzp_tpu_torch.ops import lz_cuda, pack_cuda
+    from gzp_tpu_torch.parallel.multihost import ShardResult, stitch_shards
+
+    want = [k.name for k in (lz_cuda.BUILD_KEYS, lz_cuda.NEIGHBOR, lz_cuda.MATCH_TAIL,
+                             pack_cuda.PACK_PRESCAN)]  # K1, K2, K6, K10
+    # ``data`` must be a whole number of batches for one process and for each
+    # rank: then both streams close with an empty final block (a stream that
+    # ends mid-batch marks its last block final instead, in gzp_tpu too)
+    if len(data) % (2 * B * N):
+        raise ValueError(f"{len(data)} B is not a whole number of batches per rank")
+    torch.cuda.empty_cache()  # the workers hold CUDA contexts of their own on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        inp = Path(tmp) / "input.bin"
+        inp.write_bytes(data)
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        procs, outs = [], []
+        for rank in range(2):
+            outs.append(Path(tmp) / f"shard{rank}.bin")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "gzp_tpu_torch.parallel.multihost",
+                 "--coordinator", f"localhost:{port}", "--num-processes", "2",
+                 "--rank", str(rank), "--format", "gzip", "--level", "3",
+                 "--num-threads", str(B), "--input", str(inp), "--output", str(outs[-1])],
+                cwd=Path(__file__).resolve().parent,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            ))
+        try:
+            deadline = time.monotonic() + WORKER_TIMEOUT
+            results = [p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+                       for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for rank, (p, (out, err)) in enumerate(zip(procs, results)):
+            if p.returncode != 0:
+                raise AssertionError(f"worker {rank} exited with {p.returncode}:\n{out}\n{err}")
+        reports = [json.loads(out.strip().splitlines()[-1]) for out, _ in results]
+        for r in reports:
+            print(f"multihost worker {r['rank']} on {r['device']}: {r['seconds']:.3f} s, "
+                  f"launches {json.dumps(r['launches'])}", flush=True)
+            missing = [k for k in want if r["launches"][k] <= 0]
+            if missing or not r["device"].startswith("cuda"):
+                raise AssertionError(f"worker {r['rank']} on {r['device']}: kernels never "
+                                     f"launched: {missing}")
+        t1 = time.perf_counter()
+        buf = io.BytesIO()
+        stitch_shards(Gzip, [ShardResult.from_bytes(o.read_bytes()) for o in outs], buf)
+        stitch = time.perf_counter() - t1
+    got = buf.getvalue()
+    if gzip.decompress(got) != data:
+        raise AssertionError("multihost: the stitched stream does not restore the input")
+    t1 = time.perf_counter()
+    one = io.BytesIO()
+    w = ZBuilder(Gzip).num_threads(B).compression_level(3).from_writer(one)
+    w.write(data)
+    w.finish()
+    one_secs = time.perf_counter() - t1
+    if got != one.getvalue():
+        raise AssertionError("multihost: the stitched stream differs from a one-process run")
+    inner = max(r["seconds"] for r in reports) + stitch
+    print(f"multihost Gzip level 3, 2 processes: {len(data)} B -> {len(got)} B, restored, equal to "
+          f"the one-process stream; {wall + stitch:.3f} s = {len(data) / (wall + stitch) / 1e9:.4f}"
+          f" GB/s with process start, {inner:.3f} s = {len(data) / inner / 1e9:.4f} GB/s without "
+          f"(the slower worker's compression and the stitch, {stitch:.3f} s); one process "
+          f"{one_secs:.3f} s = {len(data) / one_secs / 1e9:.4f} GB/s; on {smi}", flush=True)
+    return reports
 
 
 def drive_stream(name, fmt, level, corpus, kernels, smi, wbits, flush_at=None):
@@ -1214,12 +1367,15 @@ def main() -> int:
     corpus = make_corpus(PATH_BYTES)
     print(f"path: {len(corpus)} bytes of corpus made in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    l3, mgzip3 = drive(3, corpus, [lz_cuda.BUILD_KEYS, lz_cuda.NEIGHBOR, lz_cuda.MATCH_TAIL,
-                           pack_cuda.PACK_PRESCAN], smi)
+    hash_kernels = [lz_cuda.BUILD_KEYS, lz_cuda.NEIGHBOR, lz_cuda.MATCH_TAIL,
+                    pack_cuda.PACK_PRESCAN]
+    l3, mgzip3, secs3 = drive(3, corpus, hash_kernels, smi)
     suffix_kernels = [lz_cuda.BUILD_KEYS, lz_cuda.LCP_LAGS, lz_cuda.HASH_MERGE,
                       lz_cuda.BUILD_SUFFIX_KEYS, lz_cuda.SUFFIX_MERGE, lz_cuda.MATCH_TAIL2,
                       pack_cuda.PACK_PRESCAN]
-    l6, _ = drive(6, corpus, suffix_kernels, smi)
+    l6, mgzip6, secs6 = drive(6, corpus, suffix_kernels, smi)
+    sha6 = hashlib.sha256(mgzip6).hexdigest()
+    del mgzip6
 
     # each row's launches on the path that runs its function: level 3 for
     # K1, K2, K6, K10; level 6 for K4, K5, K7, K8, K9. K3's function is
@@ -1237,11 +1393,14 @@ def main() -> int:
     rows["K2"]["launches"] = l3[lz_cuda.NEIGHBOR.name] - l3[loop]
     rows["K3"]["launches"] = l3[loop] + l6[loop]
 
+    # ---- 4, continued: the mesh path, each level's batches split over two
+    # devices, against the one-device streams above
+    drive_mesh(3, corpus, hash_kernels, smi, hashlib.sha256(mgzip3).hexdigest(), secs3)
+    drive_mesh(6, corpus, suffix_kernels, smi, sha6, secs6)
+
     # ---- 4, continued: the stream paths and Snappy through ZBuilder
     from gzp_tpu_torch import Gzip, RawDeflate, Snap, Zlib
 
-    hash_kernels = [lz_cuda.BUILD_KEYS, lz_cuda.NEIGHBOR, lz_cuda.MATCH_TAIL,
-                    pack_cuda.PACK_PRESCAN]
     small = corpus[:STREAM_PATH_BYTES]
     _, gzip3 = drive_stream("Gzip level 3", Gzip, 3, corpus, hash_kernels, smi, 31,
                             flush_at=(100 << 20) + 12345)
@@ -1249,6 +1408,13 @@ def main() -> int:
     drive_stream("Zlib level 3", Zlib, 3, small, hash_kernels, smi, 15)
     drive_stream("raw Deflate level 3", RawDeflate, 3, small, hash_kernels, smi, -15)
     _, snappy = drive_stream("Snappy", Snap, 0, small, hash_kernels, smi, None)
+
+    # ---- 4, continued: two worker processes, one Gzip stream stitched from
+    # their shards; then the multi-device dry run
+    drive_multihost(small, smi)
+    from gzp_tpu_torch.parallel.mesh import dryrun_multichip
+
+    dryrun_multichip(2)
 
     # ---- 4, continued: the read paths (K11, the native thread curve, the
     # device backend, MultiGzDecoder, SnappyFrameDecoder)

@@ -12,9 +12,12 @@ members, and Snappy frames. The read side is ported too:
 C++ inflate (or, with ``backend='device'``, with the CUDA inflate kernel),
 ``MultiGzDecoder`` reads any gzip stream, the sync readers read one block
 at a time, and ``formats.snap.SnappyFrameDecoder`` reads Snappy frames.
-Multi-device runs are not ported yet. Entry points run on ``cuda:0``
-unless given another device; ``device="cpu"`` runs the plain versions on
-the CPU.
+Compression scales out too: ``ZBuilder(...).mesh(devices)`` splits each
+batch over several devices (``MeshEncoder`` in ``parallel/compress.py``), and
+``parallel/multihost.py`` splits one stream over processes, each
+compressing a contiguous block range, stitched in rank order. Entry
+points run on ``cuda:0`` unless given another device; ``device="cpu"``
+runs the plain versions on the CPU.
 
     >>> import io, gzip
     >>> from gzp_tpu_torch import ZBuilder, Mgzip

@@ -1,8 +1,8 @@
 """Unified auto-dispatch builder — the ``ZBuilder`` equivalent
 (reference src/lib.rs:181-265): picks the parallel writer when
 ``num_threads > 1``, else the single-block writer, behind one API.
-Counterpart of ``gzp_tpu/parallel/builder.py``, with ``device`` in the
-place of ``mesh``.
+Counterpart of ``gzp_tpu/parallel/builder.py``, with ``device`` (one
+torch device) beside ``mesh`` (a sequence of them).
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ class ZBuilder:
     ``num_threads`` keeps the reference's contract (0/1 -> single-block
     path, reference src/lib.rs:246-263); for the parallel path it sets the
     number of blocks compressed per device dispatch. ``device`` picks the
-    device (default ``cuda:0``; ``"cpu"`` runs on the CPU).
+    device (default ``cuda:0``; ``"cpu"`` runs on the CPU); ``mesh`` splits
+    each batch over a sequence of devices instead (the parallel path only).
 
     >>> import io, gzip
     >>> from gzp_tpu_torch import ZBuilder, Mgzip
@@ -41,6 +42,7 @@ class ZBuilder:
         self._level = DEFAULT_COMPRESSION_LEVEL
         self._buffer_size: int | None = None
         self._device: str | torch.device | None = None
+        self._mesh = None
 
     def num_threads(self, n: int) -> "ZBuilder":
         self._num_threads = n
@@ -63,6 +65,10 @@ class ZBuilder:
         self._device = device
         return self
 
+    def mesh(self, devices) -> "ZBuilder":
+        self._mesh = devices
+        return self
+
     def from_writer(self, writer: BinaryIO):
         if self._num_threads > 1:
             b = (
@@ -70,6 +76,7 @@ class ZBuilder:
                 .num_threads(self._num_threads)
                 .compression_level(self._level)
                 .device(self._device)
+                .mesh(self._mesh)
             )
         else:
             b = (

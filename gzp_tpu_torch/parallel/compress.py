@@ -8,7 +8,9 @@ fed over bounded channels, and an ordered writer stitching results. Here:
   (reference ``ParCompress::write``, src/par/compress.rs:404-463);
 * a *batch* of ``num_threads`` blocks is padded into a ``[B, N]`` uint8
   tensor, copied to the device from pinned memory and encoded there — the
-  worker pool becomes the batch dimension of the device encoder;
+  worker pool becomes the batch dimension of the device encoder; with a
+  ``mesh`` of ``n`` devices each gets a contiguous ``B / n`` rows
+  (:class:`MeshEncoder`);
 * PyTorch queues device work asynchronously, so up to ``queue_depth``
   batches are in flight while the host stitches finished ones in
   submission order;
@@ -78,6 +80,49 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     return dev
 
 
+def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``arr`` on ``device``; to a CUDA device from pinned memory, so the
+    copy is asynchronous."""
+    t = torch.from_numpy(arr)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+class MeshEncoder:
+    """``encoder`` run on each device of ``devices`` over its contiguous
+    share of the batch (gzp_tpu shards the batch axis over its mesh,
+    ``gzp_tpu/parallel/compress.py:177-188``).
+
+    ``MeshEncoder(encoder, devices)(*host_arrays)`` takes the host arrays
+    of one batch (each with the batch as its first axis, whose length
+    must be a multiple of the number of devices), copies device ``k``'s
+    rows ``[k * B / n, (k + 1) * B / n)`` to it with :func:`to_device`,
+    encodes them there, and returns one result dict per device, in device
+    order. Outputs stay on their device until the host fetches them; there
+    are no copies between devices. A device may appear more than once.
+    """
+
+    def __init__(self, encoder, devices):
+        self.encoder = encoder
+        self.devices = [resolve_device(d) for d in devices]
+        if not self.devices:
+            raise ValueError("a mesh needs at least one device")
+
+    def __len__(self) -> int:
+        return len(self.devices)
+
+    def __call__(self, *arrays: np.ndarray) -> list[dict]:
+        b, n = len(arrays[0]), len(self.devices)
+        if b % n:
+            raise ValueError(f"a batch of {b} does not split over {n} devices")
+        per = b // n
+        return [
+            self.encoder(*(to_device(a[k * per: (k + 1) * per], dev) for a in arrays))
+            for k, dev in enumerate(self.devices)
+        ]
+
+
 class ParCompress:
     """Streaming writer compressing blocks in parallel on a device.
 
@@ -85,8 +130,14 @@ class ParCompress:
     ``finish()`` finalizes the stream and returns the underlying writer
     (reference ``ZWriter::finish``, src/lib.rs:166-170).
 
-    Shard-mode knobs (gzp_tpu's public API for one host compressing a
-    contiguous mid-stream block range):
+    ``mesh`` — a sequence of devices in the place of ``device`` — splits
+    each batch over them: ``num_threads`` is rounded up to a multiple of
+    their number, and device ``k`` encodes the ``k``-th contiguous share
+    of the batch's rows. A device may appear more than once. The bytes
+    are those of one device.
+
+    Shard-mode knobs (used by ``parallel/multihost.py``, where one process
+    compresses a contiguous mid-stream block range):
 
     * ``emit_header=False``  — suppress the stream header (rank > 0)
     * ``emit_footer=False``  — suppress trailer+footer (a stitcher emits
@@ -112,6 +163,7 @@ class ParCompress:
         buffer_size: int | None = None,
         queue_depth: int = DEFAULT_QUEUE_DEPTH,
         device: str | torch.device | None = None,
+        mesh=None,
         use_dict: bool = True,
         emit_header: bool = True,
         emit_footer: bool = True,
@@ -134,7 +186,6 @@ class ParCompress:
         self.block_size = buffer_size
         self.batch = num_threads
         self.queue_depth = queue_depth
-        self.device = resolve_device(device)
         self._verify = verify
         self.verify_stats = {"checked": 0, "repaired": 0}
         self._verify_stream = None  # incremental inflater of the stream-mode oracle
@@ -165,6 +216,14 @@ class ParCompress:
             self._encoder = get_snappy_encoder(self._cfg)
         else:
             raise ValueError(f"unknown codec {format_spec.codec}")
+
+        if device is not None and mesh is not None:
+            raise ValueError("pass a device or a mesh, not both")
+        # one device is a mesh of one; the batch rounds up to a multiple of
+        # the mesh (gzp_tpu/parallel/compress.py:187-188)
+        self._mesh = MeshEncoder(self._encoder, [device] if mesh is None else mesh)
+        self.device = self._mesh.devices[0] if mesh is None else None
+        self.batch = -(-self.batch // len(self._mesh)) * len(self._mesh)
 
     # ------------------------------------------------------------------
     # io.RawIOBase-ish surface
@@ -318,19 +377,14 @@ class ParCompress:
             if not data:
                 return
 
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(arr)
-        if self.device.type == "cuda":
-            # from pinned memory the copy is asynchronous
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
-
     def _dispatch(self, arr, lengths, finals, count: int | None = None) -> None:
+        # the halo spans the whole batch before a mesh splits it: the first
+        # row of a device's share gets the last row of the share before
         halo, dict_lens = self._make_halo(arr, lengths)
         self._update_carry(arr, lengths, count or len(lengths))
         args = [arr, lengths, finals] + ([halo, dict_lens] if halo is not None else [])
         try:
-            res = self._encoder(*map(self._to_device, args))
+            res = self._mesh(*args)
         except Exception as e:  # launch failure
             self._error = e
             raise
@@ -345,10 +399,13 @@ class ParCompress:
     def _consume_one(self) -> None:
         res, arr, lengths, finals, count = self._inflight.popleft()
         try:
-            # fetch exactly sum(out_len) bytes, not the padded batch
-            out_len = res["out_len"].cpu().numpy()
-            chks = res["check"].cpu().numpy()
-            flat = res["flat"][: int(out_len.sum())].cpu().numpy()
+            # fetch exactly sum(out_len) bytes of each device's share, not
+            # the padded rows; the shares end to end in device order
+            lens = [r["out_len"].cpu().numpy() for r in res]
+            chks = np.concatenate([r["check"].cpu().numpy() for r in res])
+            flats = [r["flat"][: int(n.sum())].cpu().numpy() for r, n in zip(res, lens)]
+            out_len = np.concatenate(lens)
+            flat = flats[0] if len(flats) == 1 else np.concatenate(flats)
             starts = np.cumsum(out_len) - out_len
 
             def get_blob(i):
@@ -464,8 +521,8 @@ class ParCompress:
 
 class ParCompressBuilder:
     """Builder mirroring the reference's ``ParCompressBuilder``
-    (src/par/compress.rs:33-204); ``device`` takes the place of the JAX
-    package's ``mesh``."""
+    (src/par/compress.rs:33-204), with ``device`` beside ``mesh`` (a
+    sequence of torch devices; see ``ParCompress``)."""
 
     def __init__(self, format_spec: FormatSpec):
         self.format_spec = format_spec
@@ -473,6 +530,7 @@ class ParCompressBuilder:
         self._level = DEFAULT_COMPRESSION_LEVEL
         self._buffer_size: int | None = None
         self._device: str | torch.device | None = None
+        self._mesh = None
         self._queue_depth = DEFAULT_QUEUE_DEPTH
         self._verify = False
 
@@ -503,6 +561,11 @@ class ParCompressBuilder:
         self._device = device
         return self
 
+    def mesh(self, devices) -> "ParCompressBuilder":
+        """Devices to split each batch over (``None``: one device)."""
+        self._mesh = devices
+        return self
+
     def queue_depth(self, depth: int) -> "ParCompressBuilder":
         self._queue_depth = max(1, depth)
         return self
@@ -522,5 +585,6 @@ class ParCompressBuilder:
             buffer_size=self._buffer_size,
             queue_depth=self._queue_depth,
             device=self._device,
+            mesh=self._mesh,
             verify=self._verify,
         )

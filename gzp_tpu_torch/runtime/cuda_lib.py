@@ -145,6 +145,9 @@ def build(kernels: list[CudaKernel] | None = None, *, force: bool = False,
         cmd0 = [nvcc(), *NVCC_FLAGS] + (["-Xptxas", "-v"] if ptxas_verbose else [])
         procs = []
         for k in todo:
+            # processes that build at once (the workers of parallel/multihost.py)
+            # each write their own temporary file and rename it into place,
+            # so a loader never sees a partial library
             tmp = k.library.with_suffix(f".{os.getpid()}.tmp")
             p = subprocess.Popen(
                 cmd0 + ["-o", str(tmp), str(CSRC / k.source)],

@@ -9,7 +9,10 @@ not a multiple of its tile; the inflate K11 on the rows of
 ``inflate_case_batch`` (also at caps that are not a multiple of 4) and on
 BGZF blocks at levels 0-9 (against the host codec), and
 ``ParDecompress(backend='device')`` reading BGZF on the card with no block
-routed to the host codec.
+routed to the host codec; a mesh of ``[cuda:0, cuda:0]`` (and of two
+cards where there are two) writing the one-device stream, and two worker
+processes of ``parallel/multihost.py`` on the card, stitched, writing the
+one-process stream.
 
 Marked ``cuda``; without a CUDA device every test skips (decided in the
 fixture, never at import). Run on the card with ``python -m pytest -m
@@ -588,3 +591,94 @@ def test_inflate_wrapper_checks_its_tensors(card):
     assert ik.INFLATE.launches == before
     r = ik.inflate_blocks(cfg, streams, lens.to(torch.int64), lens)  # the wrapper converts
     assert r["ok"].all() and ik.INFLATE.launches == before + 1
+
+
+# ---- the mesh (parallel/mesh.py) and the multi-process workers
+# (parallel/multihost.py) on the card
+
+
+def _meshes():
+    """[cuda:0, cuda:0] on any card; two distinct cards where there are two."""
+    return [pytest.param(2, id="cuda0-cuda0"), pytest.param(None, id="two-cards")]
+
+
+@pytest.mark.parametrize("mesh_of", _meshes())
+@pytest.mark.parametrize("fmt,level,cut", [(Mgzip, 3, None), (Gzip, 3, 5 * N + 1234)],
+                         ids=["mgzip-3", "gzip-3-flush"])
+def test_mesh_equals_one_device(card, mesh_of, fmt, level, cut):
+    """A batch split over a mesh writes the one-device stream: 16 blocks
+    and a tail at 8 threads (two batches; with Gzip's flush a partial
+    block mid-batch, so a device's first row takes the halo of a row on
+    the device before it)."""
+    if mesh_of is None:
+        if torch.cuda.device_count() < 2:
+            pytest.skip("needs two CUDA devices")
+        mesh = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    else:
+        mesh = [card] * mesh_of
+    blob = _text(16 * N + 777, 11).tobytes()
+    outs = []
+    for m in (None, mesh):
+        buf = io.BytesIO()
+        b = ZBuilder(fmt).num_threads(8).compression_level(level)
+        w = (b.device(card) if m is None else b.mesh(m)).from_writer(buf)
+        if cut is None:
+            w.write(blob)
+        else:
+            w.write(blob[:cut])
+            w.flush()
+            w.write(blob[cut:])
+        w.finish()
+        outs.append(buf.getvalue())
+    assert outs[0] == outs[1]
+
+
+def test_two_process_workers_on_the_card(card, tmp_path):
+    """Two worker processes on the card (cuda:<rank mod devices>), stitched,
+    equal a one-process run; each launched K1, K2, K6 and K10."""
+    import json
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from gzp_tpu_torch.parallel import multihost as mh
+
+    data = _text(40 * N + 4321, 12).tobytes()
+    inp = tmp_path / "input.bin"
+    inp.write_bytes(data)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs, outs = [], []
+    for rank in range(2):
+        outs.append(tmp_path / f"shard{rank}.bin")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "gzp_tpu_torch.parallel.multihost",
+             "--coordinator", f"localhost:{port}", "--num-processes", "2",
+             "--rank", str(rank), "--format", "gzip", "--num-threads", "8",
+             "--input", str(inp), "--output", str(outs[-1])],
+            cwd=Path(__file__).resolve().parent.parent,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        ))
+    try:
+        results = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (_, err) in zip(procs, results):
+        assert p.returncode == 0, err
+    for out, _ in results:
+        line = json.loads(out.strip().splitlines()[-1])
+        assert line["device"].startswith("cuda")
+        for k in ("build_keys", "neighbor", "match_tail", "pack_prescan"):
+            assert line["launches"][k] > 0, line
+    buf = io.BytesIO()
+    mh.stitch_shards(Gzip, [mh.ShardResult.from_bytes(o.read_bytes()) for o in outs], buf)
+    one = io.BytesIO()
+    w = ZBuilder(Gzip).num_threads(8).device(card).from_writer(one)
+    w.write(data)
+    w.finish()
+    assert buf.getvalue() == one.getvalue()

@@ -26,6 +26,16 @@ from gzp_tpu_torch.ops import huffman as thf
 from gzp_tpu_torch.ops import tables as ttb
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """These small CPU shapes run faster on 2 torch threads than on every
+    core, and leave the other cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _eq(a, b):
     a = np.asarray(a)
     b = b.numpy() if isinstance(b, torch.Tensor) else np.asarray(b)

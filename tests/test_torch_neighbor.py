@@ -40,6 +40,16 @@ NPADS = [2 * TILE + 1027, 4 * TILE + 2044]
 NP_PALLAS = 5 * 1024  # whole (8, 128) tiles, as the Pallas kernels take
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """These small CPU shapes run faster on 2 torch threads than on every
+    core, and leave the other cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _text(seed):
     """Text of a few repeated phrases: most hash buckets hold matches."""
     rng = np.random.default_rng(seed)

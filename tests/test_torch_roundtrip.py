@@ -29,6 +29,16 @@ from gzp_tpu_torch import (
 BS = 32768
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """These small CPU shapes run faster on 2 torch threads than on every
+    core, and leave the other cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _text(n, seed=0):
     rng = np.random.default_rng(seed)
     words = [b"the quick brown fox ", b"jumps over the lazy dog ",
