@@ -76,7 +76,22 @@ Phases (any failure raises and exits non-zero; no result line then):
              it (every 128 KiB block over the caps: all to the host
              codec); the Gzip level-3 path's stream through
              ``MultiGzDecoder`` and the Snappy path's through
-             ``SnappyFrameDecoder``, each restoring its input;
+             ``SnappyFrameDecoder``, each restoring its input; then the
+             shell entry points, over 64 MiB of the text in a file, each
+             in a process of its own (a timeout each): ``examples/
+             pigz_clone_torch.py`` at Gzip level 3, BGZF level 6 and
+             Snappy (64 threads), each output byte-equal by sha256 to an
+             in-process ``ZBuilder`` card run of the same format, level
+             and threads with 1 MiB writes, and restored by its decoder;
+             ``block_decompress_torch.py`` on the BGZF output with
+             ``--backend device`` and with the native default, and
+             ``snap_decode_torch.py`` on the Snappy output, each writing
+             the input; a fresh interpreter's import of the package, and
+             that with a CUDA context, timed; each example's
+             ``main(argv)`` also called in this process on 8 MiB (counts
+             set to 0 just before, read just after), where the
+             compressors must launch their path's kernels, the device
+             decode K11, and the host decodes none;
 5. result  — one ``kernels`` JSON line, then the last line
              ``{"ok": true, "device": {...}}``.
 """
@@ -85,6 +100,7 @@ from __future__ import annotations
 
 import gzip
 import hashlib
+import importlib.util
 import io
 import json
 import os
@@ -1318,6 +1334,163 @@ def read_paths(dev, corpus, mgzip3, gzip3, snappy, small, smi, host):
     return row
 
 
+EXAMPLES = Path(__file__).resolve().parent / "examples"
+EXAMPLE_BYTES = 64 << 20  # each example's input through the shell
+EXAMPLE_LAUNCH_BYTES = 8 << 20  # each example's in-process call, for its launches
+EXAMPLE_TIMEOUT = 300  # seconds for each example process
+
+
+class _Stdio:
+    """A stand-in for sys.stdin / sys.stdout: the examples read and write
+    ``.buffer``."""
+
+    def __init__(self, data: bytes = b"") -> None:
+        self.buffer = io.BytesIO(data)
+
+
+def example_in_process(name, argv, data):
+    """``examples/<name>.py``'s ``main(argv)`` in this process, reading
+    ``data``, with every count set to 0 just before and read just after.
+    Returns (what it wrote, {kernel name: launches})."""
+    from gzp_tpu_torch.runtime import cuda_lib
+
+    spec = importlib.util.spec_from_file_location(f"_example_{name}", EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out, saved = _Stdio(), (sys.stdin, sys.stdout)
+    torch.cuda.synchronize()
+    for k in cuda_lib.counts():
+        k.launches = 0
+    sys.stdin, sys.stdout = _Stdio(data), out
+    try:
+        mod.main(argv)
+    finally:
+        sys.stdin, sys.stdout = saved
+    torch.cuda.synchronize()
+    return out.buffer.getvalue(), {k.name: k.launches for k in cuda_lib.counts()}
+
+
+def example_process(name, argv, stdin: Path, stdout: Path) -> float:
+    """``examples/<name>.py`` in a process of its own, stdin from and stdout
+    to files. A non-zero exit or EXAMPLE_TIMEOUT fails the run (the
+    process is killed). Returns the wall seconds, process start included."""
+    t0 = time.perf_counter()
+    with open(stdin, "rb") as fi, open(stdout, "wb") as fo:
+        p = subprocess.Popen([sys.executable, str(EXAMPLES / f"{name}.py"), *argv], stdin=fi,
+                             stdout=fo, stderr=subprocess.PIPE, cwd=EXAMPLES.parent)
+        try:
+            _, err = p.communicate(timeout=EXAMPLE_TIMEOUT)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise AssertionError(f"{name} {' '.join(argv)} exited with {p.returncode}:\n"
+                             f"{err.decode(errors='replace')}")
+    return secs
+
+
+def examples_phase(corpus, smi):
+    """The shell entry points (module docstring, phase 4's end): each
+    compressor's output against an in-process ``ZBuilder`` card run and
+    its decoder, each decoder's output against the input, and each
+    example's launches from an in-process call on 8 MiB."""
+    import tempfile
+
+    from gzp_tpu_torch import Bgzf, Gzip, Snap, ZBuilder
+    from gzp_tpu_torch.formats.snap import SnappyFrameDecoder
+    from gzp_tpu_torch.ops import inflate_kernel as ik
+    from gzp_tpu_torch.ops import lz_cuda, pack_cuda
+
+    def snappy_decode(blob):
+        return SnappyFrameDecoder(io.BytesIO(blob)).read()
+
+    def zbuilder_sha(fmt, level, blob):
+        buf = io.BytesIO()
+        w = ZBuilder(fmt).num_threads(B).compression_level(level).device("cuda:0").from_writer(buf)
+        for i in range(0, len(blob), 1 << 20):
+            w.write(blob[i: i + (1 << 20)])
+        w.finish()
+        return hashlib.sha256(buf.getvalue()).hexdigest()
+
+    # what each example's wall time holds before any work: a fresh
+    # interpreter importing the package, then also making a CUDA context
+    start = {}
+    for what, code in (("import", "import gzp_tpu_torch"),
+                       ("import + CUDA context", "import gzp_tpu_torch, torch; "
+                        "torch.zeros(1, device='cuda:0'); torch.cuda.synchronize()")):
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", code], cwd=EXAMPLES.parent, check=True,
+                       timeout=EXAMPLE_TIMEOUT)
+        start[what] = time.perf_counter() - t0
+    print(f"example process start: {json.dumps(start)} s", flush=True)
+
+    data, small = corpus[:EXAMPLE_BYTES], corpus[:EXAMPLE_LAUNCH_BYTES]
+    hash_path = [lz_cuda.BUILD_KEYS, lz_cuda.NEIGHBOR, lz_cuda.MATCH_TAIL, pack_cuda.PACK_PRESCAN]
+    threads = ["--threads", str(B)]
+    # (name, pigz_clone_torch's flags, format, level, decoder, kernels of its path)
+    compressors = [
+        ("gzip", [], Gzip, 3, gzip.decompress, hash_path),
+        ("bgzf", ["--format", "bgzf", "--level", "6"], Bgzf, 6, gzip.decompress,
+         [lz_cuda.BUILD_SUFFIX_KEYS, lz_cuda.LCP_LAGS, lz_cuda.SUFFIX_MERGE, lz_cuda.BUILD_KEYS,
+          lz_cuda.HASH_MERGE, lz_cuda.MATCH_TAIL2, pack_cuda.PACK_PRESCAN]),
+        ("snappy", ["--format", "snappy"], Snap, 3, snappy_decode, hash_path),
+    ]
+    torch.cuda.empty_cache()  # each example process holds a CUDA context of its own
+    launched: set[str] = set()
+    with tempfile.TemporaryDirectory() as tmp:
+        inp = Path(tmp) / "input.bin"
+        inp.write_bytes(data)
+        outs, smalls = {}, {}
+        for name, flags, fmt, level, decode, kernels in compressors:
+            argv = [*flags, *threads]
+            outs[name] = Path(tmp) / f"out.{name}"
+            secs = example_process("pigz_clone_torch", argv, inp, outs[name])
+            blob = outs[name].read_bytes()
+            if hashlib.sha256(blob).hexdigest() != zbuilder_sha(fmt, level, data):
+                raise AssertionError(f"pigz_clone_torch {' '.join(argv)}: its output differs "
+                                     "from an in-process ZBuilder run on the card")
+            if decode(blob) != data:
+                raise AssertionError(f"pigz_clone_torch {' '.join(argv)}: not restored by its "
+                                     "decoder")
+            smalls[name], launches = example_in_process("pigz_clone_torch", argv, small)
+            missing = [k.name for k in kernels if launches[k.name] <= 0]
+            if missing or decode(smalls[name]) != small:
+                raise AssertionError(f"pigz_clone_torch {' '.join(argv)} in process: kernels "
+                                     f"never launched {missing}, or its output not restored")
+            launched.update(k for k, n in launches.items() if n > 0)
+            print(f"example pigz_clone_torch.py {' '.join(argv)}: {len(data)} B -> {len(blob)} B, "
+                  f"sha256 equal to the in-process ZBuilder run, restored; {secs:.3f} s with "
+                  f"process start = {len(data) / secs / 1e9:.4f} GB/s of input; launches on "
+                  f"{len(small)} B in process {json.dumps(launches)}; on {smi}", flush=True)
+        # (example, flags, input, kernels it must launch: none for the host decoders)
+        decoders = [
+            ("block_decompress_torch", ["--format", "bgzf", *threads, "--backend", "device"],
+             "bgzf", [ik.INFLATE]),
+            ("block_decompress_torch", ["--format", "bgzf", *threads], "bgzf", []),
+            ("snap_decode_torch", [], "snappy", []),
+        ]
+        for name, argv, src, kernels in decoders:
+            cmd = " ".join([f"{name}.py", *argv])
+            restored = Path(tmp) / "restored"
+            secs = example_process(name, argv, outs[src], restored)
+            if restored.read_bytes() != data:
+                raise AssertionError(f"{cmd}: does not write the input")
+            got, launches = example_in_process(name, argv, smalls[src])
+            want = {k.name for k in kernels}
+            wrong = {k: n for k, n in launches.items() if (n > 0) != (k in want)}
+            if got != small or wrong:
+                raise AssertionError(f"{cmd} in process: output restored "
+                                     f"{got == small}, launches not as expected {wrong}")
+            launched.update(want)
+            print(f"example {cmd}: {outs[src].stat().st_size} B -> "
+                  f"{len(data)} B, equal to the input; {secs:.3f} s with process start = "
+                  f"{len(data) / secs / 1e9:.4f} GB/s of output; launches on the {len(small)} B "
+                  f"stream in process {json.dumps(launches)}; on {smi}", flush=True)
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1421,6 +1594,15 @@ def main() -> int:
     t0 = time.perf_counter()
     rows["K11"] = read_paths(dev, corpus, mgzip3, gzip3, snappy, small, smi, host)
     print(f"read paths: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 4, continued: the shell entry points (examples/*_torch.py)
+    t0 = time.perf_counter()
+    launched = examples_phase(corpus, smi)
+    want = {k.name for k in cuda_lib.registered()}
+    if want - launched:
+        raise AssertionError(f"examples: kernels never launched {sorted(want - launched)}")
+    print(f"examples: {time.perf_counter() - t0:.1f} s; all {len(want)} kernel libraries launched "
+          "from the shell entry points (K3's function is on no path)", flush=True)
 
     # ---- 5. result
     order = ["K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10", "K11"]

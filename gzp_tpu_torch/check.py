@@ -330,6 +330,12 @@ class Check:
 
     def combine(self, other: "Check") -> None:
         """Fold ``other`` (checksum of the bytes following ours) into self."""
+        self.combine_sum(other.sum(), other.amount())
+
+    def combine_sum(self, value: int, length: int) -> None:
+        """Fold the check ``value`` of the ``length`` bytes following ours
+        into self. ``length`` is taken as given, not modulo 2^32, so a
+        range of 4 GiB or more folds right; ``amount()`` still wraps."""
         raise NotImplementedError
 
     @classmethod
@@ -361,9 +367,9 @@ class Crc32(Check):
         self._sum = zlib.crc32(data, self._sum) & U32
         self._amount = (self._amount + len(data)) & U32
 
-    def combine(self, other: Check) -> None:
-        self._sum = crc32_combine(self._sum, other.sum(), other.amount())
-        self._amount = (self._amount + other.amount()) & U32
+    def combine_sum(self, value: int, length: int) -> None:
+        self._sum = crc32_combine(self._sum, value, length)
+        self._amount = (self._amount + length) & U32
 
 
 class Adler32(Check):
@@ -385,9 +391,9 @@ class Adler32(Check):
         self._sum = zlib.adler32(data, self._sum) & U32
         self._amount = (self._amount + len(data)) & U32
 
-    def combine(self, other: Check) -> None:
-        self._sum = adler32_combine(self._sum, other.sum(), other.amount())
-        self._amount = (self._amount + other.amount()) & U32
+    def combine_sum(self, value: int, length: int) -> None:
+        self._sum = adler32_combine(self._sum, value, length)
+        self._amount = (self._amount + length) & U32
 
     @classmethod
     def from_sum(cls, value: int, amount: int) -> "Adler32":
@@ -418,9 +424,9 @@ class Crc32C(Check):
         self._sum = crc32c(data, self._sum)
         self._amount = (self._amount + len(data)) & U32
 
-    def combine(self, other: Check) -> None:
-        self._sum = crc32c_combine(self._sum, other.sum(), other.amount())
-        self._amount = (self._amount + other.amount()) & U32
+    def combine_sum(self, value: int, length: int) -> None:
+        self._sum = crc32c_combine(self._sum, value, length)
+        self._amount = (self._amount + length) & U32
 
 
 class PassThroughCheck(Check):
@@ -441,8 +447,8 @@ class PassThroughCheck(Check):
     def update(self, data: bytes) -> None:
         self._amount = (self._amount + len(data)) & U32
 
-    def combine(self, other: Check) -> None:
-        self._amount = (self._amount + other.amount()) & U32
+    def combine_sum(self, value: int, length: int) -> None:
+        self._amount = (self._amount + length) & U32
 
     @classmethod
     def from_sum(cls, value: int, amount: int) -> "PassThroughCheck":

@@ -422,7 +422,6 @@ class ParCompress:
             raise
 
     def _stitch_batch(self, get_blob, chks, arr, lengths, finals, count) -> None:
-        fmt = self.format
         pieces: list[bytes] = []
         for i in range(count):
             ln = int(lengths[i])
@@ -439,7 +438,7 @@ class ParCompress:
             blob = self._maybe_fallback(blob, raw, ln, fin, chk)
             if self._verify:
                 blob, chk = self._verify_or_repair(blob, raw, ln, fin, chk)
-            self._check.combine(fmt.check_cls.from_sum(chk, ln))
+            self._check.combine_sum(chk, ln)
             pieces.append(blob)
             self._emitted_any = True
         if pieces:

@@ -12,10 +12,11 @@ ordered-writer contract (src/par/compress.rs:248-323) lifted one level up:
   range, with no stream header (rank > 0) and no footer (every rank):
   a zlib-family shard ends in a Z_SYNC_FLUSH block join, the dictionary
   carry is preset from the previous shard's trailing ``DICT_SIZE`` input
-  bytes, and the shard's running checksum is returned;
+  bytes, and the shard's running checksum and its length are returned;
 * ``stitch_shards(...)`` — the payloads in rank order, the per-shard
-  checksums folded with the O(1) combine (pigz COMB across processes),
-  header, trailer and footer written once.
+  checksums folded with the O(1) combine (pigz COMB across processes)
+  over each shard's length as given (64 bits on the wire, so a shard of
+  4 GiB or more folds right), header, trailer and footer written once.
 
 The process group is only the rendezvous: shards travel as files, in the
 16-byte ``<IIQ`` header format of gzp_tpu's ``ShardResult``, so either
@@ -40,7 +41,7 @@ from gzp_tpu_torch.constants import DICT_SIZE
 from gzp_tpu_torch.formats.base import FormatSpec
 from gzp_tpu_torch.parallel.compress import ParCompress
 
-_HEADER = struct.Struct("<IIQ")  # rank, check sum, check amount
+_HEADER = struct.Struct("<IIQ")  # rank, check sum, the shard's length in bytes
 RENDEZVOUS_TIMEOUT = timedelta(seconds=300)
 
 
@@ -136,8 +137,9 @@ def compress_shard(
     )
     pc.write(data[start:end])
     pc.finish()
-    check = pc.check
-    return ShardResult(rank, sink.getvalue(), check.sum(), check.amount())
+    # the shard's true length, not check.amount() (modulo 2^32): the stitch
+    # folds the check over it, and a shard may hold 4 GiB or more
+    return ShardResult(rank, sink.getvalue(), pc.check.sum(), end - start)
 
 
 def stitch_shards(format_spec: FormatSpec, shards: list[ShardResult], writer: BinaryIO, *,
@@ -154,7 +156,7 @@ def stitch_shards(format_spec: FormatSpec, shards: list[ShardResult], writer: Bi
     running = format_spec.create_check()
     for s in shards:
         writer.write(s.payload)
-        running.combine(format_spec.check_cls.from_sum(s.check_sum, s.check_amount))
+        running.combine_sum(s.check_sum, s.check_amount)
     trailer = format_spec.trailer_bytes()
     if trailer:
         writer.write(trailer)

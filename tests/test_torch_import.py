@@ -1,5 +1,6 @@
 """gzp_tpu_torch stands alone: it imports with jax and gzp_tpu blocked, and
-no file of it, nor ``chip_smoke.py`` or ``tools/``, names either.
+no file of it, nor ``chip_smoke.py``, ``tools/`` or the port's examples,
+names either; an installed copy ships every source it builds.
 
 tests/conftest.py imports jax into every test process, so the import
 check runs in a fresh interpreter.
@@ -9,6 +10,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import tomllib
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "gzp_tpu_torch"
 PATTERN = re.compile(r"import jax|from jax|gzp_tpu\.")
@@ -49,10 +51,16 @@ def test_no_file_names_jax_or_gzp_tpu():
     assert not offenders, "\n".join(offenders)
 
 
+PORT_EXAMPLES = ("pigz_clone_torch.py", "block_decompress_torch.py", "snap_decode_torch.py")
+
+
 def test_chip_smoke_and_tools_name_neither():
+    """``chip_smoke.py``, ``tools/`` and the port's examples name neither."""
     root = PKG.parent
-    files = [root / "chip_smoke.py", *sorted((root / "tools").glob("*"))]
+    examples = [root / "examples" / name for name in PORT_EXAMPLES]
+    files = [root / "chip_smoke.py", *sorted((root / "tools").glob("*")), *examples]
     assert len(files) > 1
+    assert all(f.is_file() for f in examples)
     offenders = _offenders(files)
     assert not offenders, "\n".join(offenders)
 
@@ -68,3 +76,22 @@ def test_native_codec_is_the_ports_own():
     assert native_lib.SOURCE.read_bytes() == ref.read_bytes()
     assert native_lib.library_path().parent == PKG / "_build"
     assert pathlib.Path(get_native()._lib._name) == native_lib.library_path()
+
+
+def test_package_data_ships_the_ports_sources():
+    """``[tool.setuptools.package-data]`` in pyproject.toml names the port's
+    C++ host codec and every CUDA source: an installed (not editable) copy
+    builds both at first use."""
+    root = PKG.parent
+    with open(root / "pyproject.toml", "rb") as f:
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+    shipped = set()
+    for package, patterns in data.items():
+        pkg_dir = root.joinpath(*package.split("."))
+        for pattern in patterns:
+            shipped.update(p.resolve() for p in pkg_dir.glob(pattern))
+    want = [PKG / "runtime" / "native" / "gzptpu_native.cpp",
+            *sorted(p for p in (PKG / "csrc").iterdir() if p.is_file())]
+    assert len(want) > 10
+    missing = [str(p.relative_to(root)) for p in want if p.resolve() not in shipped]
+    assert not missing, missing

@@ -168,6 +168,44 @@ def test_stitch_needs_every_rank():
         mh.stitch_shards(gzp_tpu_torch.Gzip, [s], io.BytesIO())
 
 
+@pytest.mark.parametrize("name", ["gzip", "zlib"])
+def test_stitch_folds_a_shard_of_4_gib_or_more(name):
+    """A middle shard of 2^32 + k bytes, given by its check and its 64-bit
+    length (no 4 GiB of data: its check is gzp_tpu's combine of two pieces
+    under 2^32 each, and any 32-bit CRC, or any Adler32 halves below 65521,
+    is the check of some piece that long). The stitched footer must hold
+    the check of the whole range, folded piece by piece with gzp_tpu's
+    combine, and Gzip's ISIZE the total modulo 2^32."""
+    from gzp_tpu import check as ref_check
+
+    fmt = gzp_tpu_torch.ALL_FORMATS[name]
+    rng = np.random.default_rng(11)
+    head, tail = make_text(5000, seed=7), make_text(3000, seed=8)
+    k = 12345
+    lens = [1 << 31, (1 << 31) + k]  # the middle shard's pieces, each under 2^32
+    if name == "gzip":
+        crc, combine = zlib.crc32, ref_check.crc32_combine
+        pieces = [int(v) for v in rng.integers(0, 1 << 32, 2)]
+    else:
+        crc, combine = zlib.adler32, ref_check.adler32_combine
+        pieces = [int(a) | int(b) << 16 for a, b in rng.integers(1, 65521, (2, 2))]
+    middle = combine(pieces[0], pieces[1], lens[1])
+    shards = [mh.ShardResult(0, b"", crc(head), len(head)),
+              mh.ShardResult(1, b"", middle, sum(lens)),
+              mh.ShardResult(2, b"", crc(tail), len(tail))]
+    assert mh.ShardResult.from_bytes(shards[1].to_bytes()) == shards[1]  # 64 bits on the wire
+    want = crc(head)
+    for value, n in zip([*pieces, crc(tail)], [*lens, len(tail)]):
+        want = combine(want, value, n)
+    got = _stitch(mh, fmt, shards)
+    total = len(head) + sum(lens) + len(tail)
+    if name == "gzip":
+        assert int.from_bytes(got[-8:-4], "little") == want
+        assert int.from_bytes(got[-4:], "little") == total % (1 << 32)
+    else:
+        assert int.from_bytes(got[-4:], "big") == want
+
+
 def test_two_process_gloo(tmp_path):
     """The real multi-process path: two OS processes in a gloo process
     group on the CPU, each writing its shard file; the parent stitches.
