@@ -16,7 +16,12 @@ Phases (any failure raises and exits non-zero; no result line then):
              by call, and device time from CUDA-graph replay beside it):
              K1, K2 (and K3's function, at lags 4), K6 and K10 at level
              3's config, then K7, K4, K8, K1, K5 and K9 at level 6's (K8
-             also at level 9's 24 lags), with a stage split per level;
+             also at level 9's 24 lags, its operations counted from the
+             candidate tests these inputs need under its exit rule,
+             ``lz_cuda.suffix_merge_work``), with a stage split per level;
+             K8 also on rows built for its ties, early ends and tile edges
+             (``suffix_merge_edge_batch``, lags 1, 16, 24 and 127), held
+             but not timed;
              K2 also on rows built for its lags halo
              (``neighbor_edge_batch``, lags 1, 2, 4 and 127), K6 also at
              level 1's 8 context bytes (its widest window), and K6 and
@@ -118,9 +123,15 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # Hopper's integer ALU pipe: 64 INT32 lanes per SM per clock (half its 128
 # FP32 lanes), 132 SMs at the 1.98 GHz boost clock
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# K8's lag loop, unrolled by 4 (nvcc 12.9, sm_90a; tools/sass_loops.py):
-# 81 integer-ALU instructions (ISETP, SEL, VIMNMX) per 4 lags per slot
-K8_ALU_OPS_PER_LAG = 81 / 4
+# K8's ALU-pipe instructions per candidate test, from its lag loop's SASS
+# (nvcc 12.9, sm_90a; tools/sass_loops.py --kernels suffix_merge): the body
+# of 8 lags x 4 slots x 2 directions = 64 tests holds 193 (128 FMNMX, 64
+# FSETP, 1 PLOP3) beside 133 on the FMA pipe (128 FADD). Its bound counts
+# them per test the inputs need under the exit rule
+# (lz_cuda.suffix_merge_work). The parent's kernel, one thread per slot,
+# took 81 integer-ALU instructions per 4 lags x 2 directions.
+K8_ALU_OPS_PER_TEST = 193 / 64
+K8_PARENT_ALU_OPS_PER_TEST = 81 / 8
 B, N = 64, 131072
 D = 32768  # the stream halo: the 32 KiB dictionary carried from the block before
 SNAPPY_N = 65536  # Snappy's block: one frame chunk
@@ -305,6 +316,33 @@ def neighbor_edges(dev):
                   lz_cuda.neighbor_plain,
                   tuple(torch.from_numpy(x[k]).to(dev) for k in ("sk", "pays", "halo_start")),
                   dict(pos_bits=x["pos_bits"], lags=lags, max_dist=32768))
+
+
+def suffix_merge_edges(dev):
+    """K8 on its edge rows (all-zero, random, period-3, text, halo_start
+    > 0, a best candidate exactly ``lags`` across each tile edge) at lags
+    1, 16, 24 and 127 and max_dist 32768 and 100, at 3 1/2 tiles (Np =
+    7,168; and 7,165, not a multiple of 4: scalar loads and stores); and
+    on a text and a ``zeros_halo`` row of 2^22 slots (the longest on fp32
+    keys) and of 2^22 + 5,000 (int32 keys) at lags 16."""
+    from gzp_tpu_torch.ops import lz_cuda
+    from gzp_tpu_torch.utils.testing import SUFFIX_KINDS, suffix_merge_edge_batch
+
+    plan = lz_cuda.suffix_merge_plan()
+    n = 3 * plan["tile"] + 1000
+    cases = [(SUFFIX_KINDS, n, lags, npad, (32768, 100)) for lags in (1, 16, 24, 127)
+             for npad in (None, lz_cuda.padded_len(n) - 3)]
+    cases += [(("text", "zeros_halo"), m, 16, m, (32768,))
+              for m in (plan["f32_rows"], plan["f32_rows"] + 5000)]
+    for kinds, n, lags, npad, dists in cases:
+        x = suffix_merge_edge_batch(kinds, n, lags=lags, tile=plan["tile"], npad=npad,
+                                    seed=lags)
+        args = tuple(torch.from_numpy(x[k]).to(dev) for k in ("sp", "adj", "halo_start"))
+        for max_dist in dists:
+            check(f"K8 suffix_merge edge rows lags={lags} Np={args[0].shape[1]} "
+                  f"max_dist={max_dist}", lz_cuda.suffix_merge_cuda,
+                  lz_cuda.suffix_merge_plain, args,
+                  dict(lags=lags, max_dist=max_dist, payload_bytes=28))
 
 
 def pack_edges(dev, base_bits):
@@ -500,17 +538,30 @@ def level6_kernels(data, lengths, halo):
     )
     adj = adj3[0]
     merge_bytes = 2 * slots * 4 + 4 * B + slots * 4
-    packed_s, rows["K8"] = hold(
-        "K8 suffix_merge lags=16", lz_cuda.suffix_merge_cuda, lz_cuda.suffix_merge_plain,
-        (sp, adj, halo), dict(lags=lags, max_dist=32768, payload_bytes=4 * pw),
-        nbytes=merge_bytes, nops=int(slots * lags * K8_ALU_OPS_PER_LAG),
-        source=SRC + "suffix_merge.cu", replaces=PALLAS + "697",
-    )
-    hold("K8 suffix_merge lags=24 (level 9)", lz_cuda.suffix_merge_cuda,
-         lz_cuda.suffix_merge_plain, (sp, adj, halo),
-         dict(lags=24, max_dist=32768, payload_bytes=4 * pw),
-         nbytes=merge_bytes, nops=int(slots * 24 * K8_ALU_OPS_PER_LAG),
-         source=SRC + "suffix_merge.cu", replaces=PALLAS + "697")
+    plan = lz_cuda.suffix_merge_plan()
+    t = plan["tile"]
+    for lg, name in ((lags, "K8 suffix_merge lags=16"), (24, "K8 suffix_merge lags=24 (level 9)")):
+        kw = dict(lags=lg, max_dist=32768, payload_bytes=4 * pw)
+        tests = int(lz_cuda.suffix_merge_work(sp, adj, halo, **kw).sum())
+        print(f"  K8 plan at lags {lg}: T {t} slots per CTA of 256 threads ({t // 1024} runs of 4 "
+              f"consecutive slots each); grid ({-(-npad // t)}, {B}); halo {-(-lg // 32) * 32} "
+              f"slots on each side; dynamic shared memory {plan['smem_bytes']} B per CTA; "
+              f"fp32 keys (rows up to {plan['f32_rows']} slots); {tests} candidate tests needed under the exit rule, "
+              f"{tests / (2 * lg * slots):.4f} of 2 x lags per slot", flush=True)
+        got, row = hold(name, lz_cuda.suffix_merge_cuda, lz_cuda.suffix_merge_plain,
+                        (sp, adj, halo), kw, nbytes=merge_bytes,
+                        nops=int(tests * K8_ALU_OPS_PER_TEST),
+                        source=SRC + "suffix_merge.cu", replaces=PALLAS + "697")
+        row["tests_needed"] = tests
+        parent_s = tests * K8_PARENT_ALU_OPS_PER_TEST / INT32_OPS_PER_S
+        print(f"  K8 bound at lags {lg}: {tests} tests x {K8_ALU_OPS_PER_TEST:.4f} ALU "
+              f"instructions per test (this kernel's SASS) -> {row['bound_ms']:.4f} ms by "
+              f"{row['bound_by']}, the kernel at {row['bound_ms'] / row['ms']:.4f} of it; at the "
+              f"parent kernel's {K8_PARENT_ALU_OPS_PER_TEST:.4f} per test "
+              f"{max(parent_s, merge_bytes / HBM_BYTES_PER_S) * 1e3:.4f} ms", flush=True)
+        if lg == lags:
+            packed_s, rows["K8"] = got, row
+    suffix_merge_edges(data.device)
     packed_s_pos = lz_cuda.restore_order(sp, packed_s)
 
     (key, pays), _ = hold(
@@ -767,7 +818,8 @@ def drive(level, corpus, kernels, smi):
     gbps = len(corpus) / secs / 1e9
     print(f"path level {level}: {len(corpus)} B -> {len(out)} B, ratio "
           f"{len(corpus) / len(out):.4f}, size vs zlib-{level} per 128 KiB block "
-          f"{len(out) / zsize:.4f}; first 4 members equal the CPU run's; {secs:.3f} s = "
+          f"{len(out) / zsize:.4f}; sha256 {hashlib.sha256(out).hexdigest()}; first 4 members "
+          f"equal the CPU run's; {secs:.3f} s = "
           f"{gbps:.4f} GB/s end to end on {smi}", flush=True)
     if level >= 6 and len(out) > zsize:
         raise AssertionError(f"level {level}: {len(out)} B exceeds zlib's {zsize} B")
@@ -972,7 +1024,8 @@ def drive_stream(name, fmt, level, corpus, kernels, smi, wbits, flush_at=None):
         size = (f"ratio {len(corpus) / len(out):.4f}, size vs one zlib stream at level {level} "
                 f"{len(out) / zsize:.4f}")
     cut = f", flush() after {flush_at} B" if flush_at is not None else ""
-    print(f"path {name}: {len(corpus)} B -> {len(out)} B{cut}, {size}; restored by its decoder; "
+    print(f"path {name}: {len(corpus)} B -> {len(out)} B{cut}, {size}; sha256 "
+          f"{hashlib.sha256(out).hexdigest()}; restored by its decoder; "
           f"first 8 blocks + 1000 B equal the CPU run's; {secs:.3f} s = "
           f"{len(corpus) / secs / 1e9:.4f} GB/s end to end on {smi}", flush=True)
     # the host folds each block's checksum into the stream's (pigz COMB)

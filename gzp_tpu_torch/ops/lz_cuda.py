@@ -33,6 +33,8 @@ to 32 bits where arithmetic or ordering does.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from gzp_tpu_torch.ops.lz import HASH_MUL, _pos_bits
@@ -472,16 +474,83 @@ def suffix_merge_plain(sp, adj, halo_start, *, lags: int, max_dist: int,
     return _pack(ls, ds, cs)
 
 
+def _check_merge_fields(max_dist: int, payload_bytes: int) -> None:
+    """K8's packed word holds a 17-bit distance, and ``capped`` needs a
+    length of at least 1."""
+    if max_dist >= 1 << 17 or payload_bytes < 1:
+        raise ValueError(f"max_dist={max_dist}, payload_bytes={payload_bytes}: outside the "
+                         "packed word's 17-bit distance or a capped length of at least 1")
+
+
+def suffix_merge_work(sp, adj, halo_start, *, lags: int, max_dist: int,
+                      payload_bytes: int) -> torch.Tensor:
+    """Each slot's candidate tests under K8's exit rule, [B, Np] int64: the
+    up and down candidates that these inputs need, for K8's bound.
+
+    The walk holds its best candidate as one key K = ((len + 1) << 17) -
+    dist, so "longer, then nearer" is the larger key, from a start of 1 <<
+    17 (len 1 at distance 2^17): every valid candidate of len >= 1 beats
+    it and none of len 0 does. A direction whose running minimum is m can
+    give no key above ((m + 1) << 17) - 1 (len m at distance 1), so it is
+    tested at lag k while that beats the held key: m > len, or m == len and
+    the held distance is over 1 (m >= 1 at the start). Once it does not, m
+    only falls and the held key only rises, so no later candidate of that
+    direction can change the packed word: the direction is done. An
+    invalid candidate counts as a test and does not end the walk. Needs
+    ``max_dist`` < 2^17 and ``payload_bytes`` >= 1, the packed word's
+    fields."""
+    _check_merge_fields(max_dist, payload_bytes)
+    spl = sp.to(torch.int64)
+    a = adj.to(torch.int64)
+    lo = halo_start.to(torch.int64)[:, None]
+    best = torch.full_like(spl, 1 << 17)
+    tests = torch.zeros_like(spl)
+    alive = [torch.ones_like(spl, dtype=torch.bool) for _ in range(2)]
+    m_up = a
+    for lag in range(1, lags + 1):
+        if lag > 1:
+            m_up = torch.minimum(m_up, _shift_right(a, lag - 1, 0))
+        for d, (cpos, lcp) in enumerate(((_shift_right(spl, lag, -1), m_up),
+                                         (_shift_left(spl, lag, -1), _shift_left(m_up, lag, 0)))):
+            top = (lcp + 1) << 17  # the key of len lcp at distance 0
+            alive[d] &= top - 1 > best
+            tests += alive[d]
+            dist = spl - cpos
+            valid = alive[d] & (cpos >= lo) & (dist >= 1) & (dist <= max_dist)
+            best = torch.where(valid, torch.maximum(best, top - dist), best)
+    return tests
+
+
+def suffix_merge_plan() -> dict:
+    """K8's launch plan, read from its library (built on first use, so this
+    needs the CUDA toolkit): ``tile`` slots per CTA, ``smem_bytes`` of
+    dynamic shared memory per CTA whatever the lags, and ``f32_rows``, the
+    longest row it computes on fp32 keys (longer ones take int32 keys)."""
+    out = [ctypes.c_int() for _ in range(3)]
+    SUFFIX_MERGE.loaded().gzp_suffix_merge_plan(*map(ctypes.byref, out))
+    return dict(zip(("tile", "smem_bytes", "f32_rows"), (v.value for v in out)))
+
+
 def suffix_merge_cuda(sp, adj, halo_start, *, lags: int, max_dist: int,
                       payload_bytes: int):
-    """K8 (see ``csrc/suffix_merge.cu``); same contract as
-    :func:`suffix_merge_plain`."""
+    """K8 (see ``csrc/suffix_merge.cu`` and :func:`suffix_merge_plan`:
+    tiles of 2,048 slots with a halo of ``lags`` rounded up to 32, grid
+    (ceil(Np / tile), B), any Np up to 2^30); same contract as
+    :func:`suffix_merge_plain` for positions ``sp`` in [-1, Np) (slot
+    indices), LCPs ``adj`` up to 31 (the packed word's 5-bit length; K4
+    gives at most 4 x context words), ``max_dist`` < 2^17 and
+    ``payload_bytes`` >= 1 (the packed word's distance and capped fields).
+    The kernel computes on fp32 keys on rows of up to 2^22 slots and on
+    int32 keys on longer ones, exact on each."""
     kw = dict(lags=lags, max_dist=max_dist, payload_bytes=payload_bytes)
     if on_cpu(sp):
         return suffix_merge_plain(sp, adj, halo_start, **kw)
     b, npad = sp.shape
     if not 1 <= lags < 128:
         raise ValueError(f"lags={lags}: the kernel's halo holds 127 neighbours")
+    if npad > 1 << 30:
+        raise ValueError(f"Np={npad}: the kernel's int32 keys hold positions below 2^30")
+    _check_merge_fields(max_dist, payload_bytes)
     check_cuda(sp, torch.int32, (b, npad), "sp")
     check_cuda(adj, torch.int32, (b, npad), "adj")
     check_cuda(halo_start, torch.int32, (b,), "halo_start")

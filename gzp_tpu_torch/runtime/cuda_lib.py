@@ -84,15 +84,21 @@ class CudaKernel:
         """Call the entry point with ``device`` current (the runtime
         launches on the current device); raise on a CUDA error, else
         count the launch."""
+        lib = self.loaded()
+        with torch.cuda.device(device):
+            err = getattr(lib, self.symbol)(*args)
+        if err != 0:
+            msg = lib.gzp_cuda_error_string(err).decode()
+            raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
+        self.launches += 1
+
+    def loaded(self) -> ctypes.CDLL:
+        """The library, built (with every other one still missing) and
+        loaded at first use; for its other plain-C functions."""
         if self._lib is None:
             build()
             self._load()
-        with torch.cuda.device(device):
-            err = getattr(self._lib, self.symbol)(*args)
-        if err != 0:
-            msg = self._lib.gzp_cuda_error_string(err).decode()
-            raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
-        self.launches += 1
+        return self._lib
 
     def _load(self) -> None:
         with _LOCK:

@@ -1,8 +1,9 @@
 """Inputs that put the tile-parallel kernels' cross-tile arguments at their
 edges: the match tails' window (:func:`tail_edge_batch`, and
 :func:`behind_halo` for the stream encoder's halo'd rows), the pack
-pre-scan's look-back (:func:`pack_edge_batch`) and the sorted-neighbour
-kernel's lags halo (:func:`neighbor_edge_batch`).
+pre-scan's look-back (:func:`pack_edge_batch`), the sorted-neighbour
+kernel's lags halo (:func:`neighbor_edge_batch`) and the suffix merge's
+ties, early ends and limits (:func:`suffix_merge_edge_batch`).
 
 The tails K6 and K9 (``ops/lz_cuda.py``) run one CTA per tile of T
 positions and saturate distance-1 runs at R (``lz_cuda.tail_window``).
@@ -18,11 +19,15 @@ as the candidate kernels write them.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from gzp_tpu_torch.ops.lz_cuda import padded_len, tail_window
+from gzp_tpu_torch.ops.lz_cuda import (
+    build_suffix_keys_plain, lcp_lags_plain, padded_len, suffix_order, tail_window,
+)
 
 KINDS = ("edge_runs", "period3", "period37", "period300", "run_vs_suffix", "random")
 PACK_KINDS = ("long_segment", "zero_tiles", "tile_end_flush", "straddle31", "random")
+SUFFIX_KINDS = ("zeros", "random", "period3", "text", "zeros_halo", "text_halo", "tile_edge")
 NEIGHBOR_KINDS = ("bucket_edge", "row_start", "limits", "ties", "capped", "byte_diff",
                   "random")
 
@@ -334,3 +339,72 @@ def neighbor_edge_batch(kinds, npad: int, *, tile: int, lags: int, payload_words
     pays = ctx.view("<u4").transpose(2, 0, 1).view(np.int32)
     return dict(sk=sk, pays=np.ascontiguousarray(pays), halo_start=halo, pos_bits=pos_bits,
                 sites=built)
+
+
+def _text_bytes(rng, n: int) -> np.ndarray:
+    """``n`` bytes of words of a small vocabulary, space-separated."""
+    words = b"to be or not that is the question whether tis nobler in mind".split()
+    picks = rng.integers(0, len(words), n // 2 + 1)
+    return np.frombuffer(b" ".join(words[p] for p in picks)[:n], np.uint8)
+
+
+def suffix_merge_edge_batch(kinds, n: int, *, lags: int, tile: int,
+                            npad: int | None = None, payload_words: int = 7,
+                            suffix_keys: int = 5, seed: int = 0) -> dict:
+    """One row per entry of ``kinds`` (names from :data:`SUFFIX_KINDS`) of
+    ``n`` bytes, content-sorted as the suffix pass sorts it (the plain
+    versions of K7, the content sort and K4 at ``payload_words`` and
+    ``suffix_keys``) -> numpy ``sp`` and ``adj`` [rows, Np] int32 and
+    ``halo_start`` [rows] int32, the suffix merge K8's inputs:
+
+    * ``zeros``: every LCP at 4 x ``payload_words`` and positions
+      ascending: ties everywhere, each slot's nearest source 1 back;
+    * ``random``: LCPs of a byte or two, so walks end within a few lags;
+    * ``period3``: a 3-byte period: long LCPs at distances of multiples of
+      3;
+    * ``text``: words of a small vocabulary;
+    * ``zeros_halo`` and ``text_halo``: as ``zeros`` and ``text``, with
+      ``halo_start`` n // 3;
+    * ``tile_edge``: a ``text`` row where, at the i-th multiple e of
+      ``tile`` (i from 1), the best candidate of slot e (i odd) or of slot
+      e - 1 (i even) is exactly ``lags`` away, in the tile before or after:
+      the slots between carry the same full LCP at positions past the
+      slot's own (distances below 1), the one at ``lags`` the position one
+      before it.
+
+    Rows have ``padded_len(n)`` slots, cut to ``npad`` where given (a cut
+    row is no permutation of positions; K8 takes any)."""
+    rng = np.random.default_rng(seed)
+    data = np.zeros((len(kinds), n), np.uint8)
+    halo = np.zeros(len(kinds), np.int32)
+    for i, kind in enumerate(kinds):
+        if kind not in SUFFIX_KINDS:
+            raise ValueError(f"unknown kind {kind!r}; expected one of {SUFFIX_KINDS}")
+        if kind == "random":
+            data[i] = rng.integers(0, 256, n, dtype=np.uint8)
+        elif kind == "period3":
+            data[i] = np.resize(rng.integers(0, 256, 3, dtype=np.uint8), n)
+        elif kind.startswith("text"):
+            data[i] = _text_bytes(rng, n)
+        if kind.endswith("_halo"):
+            halo[i] = n // 3
+    keys, pos = build_suffix_keys_plain(torch.from_numpy(data), payload_words=payload_words)
+    order = suffix_order(keys, pos, suffix_keys)
+    skeys = torch.gather(keys, 2, order.expand(payload_words, -1, -1))
+    adj = lcp_lags_plain(skeys, 1, big_endian=True)[0].numpy().copy()
+    sp = torch.gather(pos, 1, order).numpy().copy()
+    full, mid = 4 * payload_words, sp.shape[1] // 2
+    for i, kind in enumerate(kinds):
+        if kind != "tile_edge":
+            continue
+        for q, e in enumerate(range(tile, sp.shape[1] - lags, tile)):
+            if e < lags:
+                continue
+            me, step = (e, -1) if q % 2 == 0 else (e - 1, 1)
+            first = e - lags + 1 if step < 0 else e  # adj's slots on the way
+            adj[i, first: first + lags] = full
+            at = me + step * np.arange(1, lags + 1)
+            sp[i, me], sp[i, at[:-1]], sp[i, at[-1]] = mid, mid + np.arange(1, lags), mid - 1
+    cut = slice(None, npad)
+    return dict(sp=np.ascontiguousarray(sp[:, cut]), adj=np.ascontiguousarray(adj[:, cut]),
+                halo_start=halo)

@@ -3,9 +3,11 @@ main paths' full width (64 blocks of 128 KiB; level 3's config for K1, K2,
 K6 and K10, level 6's for K4, K5, K7, K8 and K9), K2 also over 1-3 context
 words and lags 1-127 and on rows built for its lags halo, the tails K6 and
 K9 on rows built to sit at the edges of their tiles and windows, the pack
-pre-scan K10 on rows built for its look-back, and the LCP ladder K4 over
-every word count, lags 1-3 and both byte orders at row lengths that are
-not a multiple of its tile; the inflate K11 on the rows of
+pre-scan K10 on rows built for its look-back, the suffix merge K8 on rows
+built for its ties, early ends and tile edges at lags 1-127 and on rows
+of 2^22 slots and past (its fp32 and int32 keys), and the LCP
+ladder K4 over every word count, lags 1-3 and both byte orders at row
+lengths that are not a multiple of its tile; the inflate K11 on the rows of
 ``inflate_case_batch`` (also at caps that are not a multiple of 4) and on
 BGZF blocks at levels 0-9 (against the host codec), and
 ``ParDecompress(backend='device')`` reading BGZF on the card with no block
@@ -36,8 +38,8 @@ from gzp_tpu_torch.parallel.decompress import stage_blocks
 from gzp_tpu_torch.runtime import get_native
 from gzp_tpu_torch.utils.inflate_cases import inflate_case_batch
 from gzp_tpu_torch.utils.testing import (
-    KINDS, NEIGHBOR_KINDS, PACK_KINDS, behind_halo, neighbor_edge_batch, pack_edge_batch,
-    tail_edge_batch,
+    KINDS, NEIGHBOR_KINDS, PACK_KINDS, SUFFIX_KINDS, behind_halo, neighbor_edge_batch,
+    pack_edge_batch, suffix_merge_edge_batch, tail_edge_batch,
 )
 
 pytestmark = pytest.mark.cuda
@@ -257,6 +259,54 @@ def test_suffix_merge_kernel(stages, stages6, lags):
     args = (stages6["sp"], stages6["adj"], stages["halo"])
     kw = dict(lags=lags, max_dist=32768, payload_bytes=4 * PW6)
     _same([lz_cuda.suffix_merge_cuda(*args, **kw)], [lz_cuda.suffix_merge_plain(*args, **kw)])
+
+
+@pytest.mark.parametrize("max_dist", [32768, 100])
+@pytest.mark.parametrize("lags", [1, 16, 24, 127])
+def test_suffix_merge_edge_rows(stages, lags, max_dist):
+    """K8 on ``suffix_merge_edge_batch`` rows (all-zero, random, period-3,
+    text, halo_start > 0, a best candidate exactly ``lags`` across each
+    tile edge) of 3 tiles and 1,000 slots, at Np = 7,168 (3 1/2 tiles:
+    16-byte loads and stores) and 7,165 (not a multiple of 4: scalar ones);
+    one launch per call."""
+    dev = stages["data"].device
+    tile = lz_cuda.suffix_merge_plan()["tile"]
+    n = 3 * tile + 1000
+    for npad in (None, lz_cuda.padded_len(n) - 3):
+        x = suffix_merge_edge_batch(SUFFIX_KINDS, n, lags=lags, tile=tile, npad=npad, seed=lags)
+        args = tuple(torch.from_numpy(x[k]).to(dev) for k in ("sp", "adj", "halo_start"))
+        assert args[0].shape[1] % tile
+        kw = dict(lags=lags, max_dist=max_dist, payload_bytes=4 * PW6)
+        before = lz_cuda.SUFFIX_MERGE.launches
+        got = lz_cuda.suffix_merge_cuda(*args, **kw)
+        assert lz_cuda.SUFFIX_MERGE.launches == before + 1
+        _same([got], [lz_cuda.suffix_merge_plain(*args, **kw)])
+
+
+def test_suffix_merge_long_rows(stages):
+    """K8 on text and ``zeros_halo`` rows of 2^22 slots, the longest it
+    computes on fp32 keys (positions up to 2^22 - 1), and of 2^22 + 5,000
+    slots, on int32 keys; lags 16 and 127, max_dist 32768 and 100."""
+    dev = stages["data"].device
+    plan = lz_cuda.suffix_merge_plan()
+    assert plan["f32_rows"] == 1 << 22
+    for n in (plan["f32_rows"], plan["f32_rows"] + 5000):
+        x = suffix_merge_edge_batch(("text", "zeros_halo"), n, lags=16, tile=plan["tile"],
+                                    npad=n)
+        args = tuple(torch.from_numpy(x[k]).to(dev) for k in ("sp", "adj", "halo_start"))
+        for lags, max_dist in ((16, 32768), (127, 100)):
+            kw = dict(lags=lags, max_dist=max_dist, payload_bytes=4 * PW6)
+            _same([lz_cuda.suffix_merge_cuda(*args, **kw)],
+                  [lz_cuda.suffix_merge_plain(*args, **kw)])
+
+
+def test_suffix_merge_refuses_outside_its_fields(stages6, stages):
+    args = (stages6["sp"], stages6["adj"], stages["halo"])
+    for kw in (dict(lags=128, max_dist=32768, payload_bytes=28),
+               dict(lags=16, max_dist=1 << 17, payload_bytes=28),
+               dict(lags=16, max_dist=32768, payload_bytes=0)):
+        with pytest.raises(ValueError):
+            lz_cuda.suffix_merge_cuda(*args, **kw)
 
 
 def test_hash_merge_kernel(stages, stages6):

@@ -7,10 +7,11 @@ Builds the named kernel libraries (default: all) with ``nvcc`` for
 ``sm_90a``, disassembles each with ``cuobjdump -sass`` into
 ``<out>/<name>.sass``, and prints one JSON line per loop of each function:
 a loop is the span from a backward branch's target to the branch. For each
-it gives the SASS instructions in the body, and how many of them are
-integer ALU, shared-memory load and other instructions, which is what an
-operation bound of the kernel is counted from. Needs the CUDA toolkit, not
-a card.
+it gives the SASS instructions in the body, and how many of them run on
+the ALU pipe (integer and logic, fp32 compare and min/max), on the FMA
+pipe (fp32 add, multiply and fused multiply-add, IMAD), are shared-memory
+loads or other, which is what an operation bound of the kernel is counted
+from. Needs the CUDA toolkit, not a card.
 """
 
 from __future__ import annotations
@@ -23,10 +24,12 @@ import sys
 from collections import Counter
 from pathlib import Path
 
-# opcodes that run on the integer ALU pipe (64 lanes per SM per clock on
-# Hopper); IMAD runs on the FMA pipe
-INT_ALU = {"IADD3", "IMNMX", "ISETP", "LOP3", "SEL", "SHF", "PRMT", "LEA", "IABS",
-           "FLO", "POPC", "BREV", "PLOP3", "VIMNMX", "P2R", "R2P"}
+# opcodes that run on the ALU pipe (64 lanes per SM per clock on Hopper):
+# integer and logic instructions, and fp32 compares, min/max and selects;
+# IMAD and the fp32 additions and products run on the FMA pipe
+ALU = {"IADD3", "IMNMX", "ISETP", "LOP3", "SEL", "SHF", "PRMT", "LEA", "IABS",
+       "FLO", "POPC", "BREV", "PLOP3", "VIMNMX", "P2R", "R2P", "FMNMX", "FSETP", "FSEL"}
+FMA = {"FADD", "FMUL", "FFMA", "IMAD"}
 LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?);")
 
 
@@ -59,8 +62,8 @@ def loops(instrs: list[tuple[int, str]]) -> list[dict]:
         if target > addr:
             continue
         body = [opcode(t) for a, t in instrs if target <= a <= addr]
-        kinds = Counter("int_alu" if op in INT_ALU else "lds" if op == "LDS" else "other"
-                        for op in body)
+        kinds = Counter("alu" if op in ALU else "fma" if op in FMA
+                        else "lds" if op == "LDS" else "other" for op in body)
         out.append({"start": hex(target), "end": hex(addr), "instructions": len(body),
                     **kinds, "opcodes": dict(Counter(body).most_common())})
     return out

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time this package's redesigned kernels of one checkout of gzp_tpu_torch on a card.
 
-    python3 tools/time_kernels.py [--root DIR] [--kernels K2,K3,K6,K9,K10,K4,K2pw7,K11] \
+    python3 tools/time_kernels.py [--root DIR] [--kernels K2,K3,K6,K9,K10,K4,K2pw7,K8,K11] \
         [--tiles 2048,4096,8192] [--iters 20]
 
 Imports ``gzp_tpu_torch`` from ``--root`` (default: this repository), so
@@ -13,7 +13,10 @@ kernel K2 at lags 2 and K3's function (the same kernel) at lags 4, its
 position-order candidates for the tail K6 and its bit entries for the pack
 pre-scan K10; level 6's two candidate fields for the tail K9, its
 content-sorted words for K4 big-endian at lag 1 and its hash-sorted
-payloads for K4 little-endian at lags 1-2 (one call each). ``K2pw7`` times
+payloads for K4 little-endian at lags 1-2 (one call each), and its
+content-sorted positions and adjacent LCPs for the suffix merge K8 at lags
+16 (levels 6-8) and 24 (level 9's lags), and at lags 16 as one row of 2^23
+slots (past 2^22 slots K8 takes int32 keys, not fp32). ``K2pw7`` times
 ``csrc/neighbor.cu`` launched directly on level 6's hash-sorted keys and 7
 payload words at lags 2 beside the route ``neighbor_cuda`` takes there (K4
 + K5), both held against ``neighbor_plain``. ``K11`` writes 64 BGZF
@@ -32,8 +35,8 @@ overhead left out); and reads the device memory one call allocates beyond
 its inputs and outputs (peak minus the outputs). With ``--tiles`` it times
 K6 and K9 at each tile size ``lz_cuda.TAIL_TILE`` takes in that checkout
 (K2's, K10's and K4's tiles are fixed in their sources). ``--ptxas`` prints the
-compiler's registers, spills and shared memory per function first. Prints
-one JSON line. Exits non-zero without a card or on a mismatch.
+compiler's registers, spills and shared memory per function first.
+Prints one JSON line. Exits non-zero without a card or on a mismatch.
 """
 
 from __future__ import annotations
@@ -189,7 +192,7 @@ def main() -> int:
     if args.ptxas:
         libs = [k for k in cuda_lib.registered()
                 if k.name in ("neighbor", "match_tail", "match_tail2", "pack_prescan",
-                              "lcp_lags", "inflate")]
+                              "lcp_lags", "suffix_merge", "inflate")]
         for name, log in cuda_lib.build(libs, force=True, ptxas_verbose=True).items():
             for line in log.splitlines():
                 if "Compiling entry" in line or "Used" in line or "spill" in line:
@@ -232,6 +235,21 @@ def main() -> int:
                                 dict(big_endian=True), False)
         cases["K4 le lags 1-2"] = (lz_cuda.lcp_lags_cuda, lz_cuda.lcp_lags_plain, (spays, 2),
                                    dict(big_endian=False), False)
+    if "K8" in wanted:
+        keys, pos = lz_cuda.build_suffix_keys_cuda(data, payload_words=7)
+        order = lz_cuda.suffix_order(keys, pos, 5)
+        skeys = torch.gather(keys, 2, order.expand(7, -1, -1))
+        adj = lz_cuda.lcp_lags_cuda(skeys, 1, big_endian=True)[0]
+        merge_args = (torch.gather(pos, 1, order), adj, halo)
+        for lags in (16, 24):
+            kw = dict(lags=lags, max_dist=32768, payload_bytes=28)
+            cases[f"K8 lags {lags}"] = (lz_cuda.suffix_merge_cuda, lz_cuda.suffix_merge_plain,
+                                        merge_args, kw, False)
+        # the 64 rows as one: positions stay in their block, distances with them
+        one_row = (merge_args[0].reshape(1, -1), adj.reshape(1, -1), halo[:1])
+        cases["K8 lags 16, one row of 2^23"] = (
+            lz_cuda.suffix_merge_cuda, lz_cuda.suffix_merge_plain, one_row,
+            dict(lags=16, max_dist=32768, payload_bytes=28), False)
     tiles = [int(t) for t in args.tiles.split(",") if t]
     out = {"root": str(root), "device": torch.cuda.get_device_name(0), "smi": smi}
     default_tile = getattr(lz_cuda, "TAIL_TILE", None)
