@@ -25,6 +25,10 @@ The stages are
 5. finish (:func:`emit_stage`): the sync-flush trailer or member framing,
    the checksum, :func:`compact_outputs`.
 
+Each stage runs inside the span ``gzp.encode.<stage>``
+(``runtime/telemetry.py``; ``entries`` for emit), which costs a flag read
+unless a profiler records.
+
 Tensors stay on the device the input is on. There is no compile step:
 :func:`get_encoder` returns a plain function.
 """
@@ -47,6 +51,7 @@ from gzp_tpu_torch.ops import huffman, lz
 from gzp_tpu_torch.ops.checksum import adler32_device, crc32_device
 from gzp_tpu_torch.ops.lz_cuda import best_matches_cuda, best_matches_suffix_cuda
 from gzp_tpu_torch.ops.pack_cuda import pack_entries_sortscan_cuda
+from gzp_tpu_torch.runtime.telemetry import span
 
 I64 = torch.int64
 M32 = 0xFFFFFFFF
@@ -356,19 +361,34 @@ def _sync_flush_trailer(words, total_bits, final):
 
 
 def emit_stage(cfg: DeflateEncodeConfig, data_u8, ext, lengths, is_final, marked, l,
-               match_dist):
+               match_dist, compact: bool = False):
     """Stages 3-5: entries, packing, the stream trailer or member framing,
     and the checksum. Returns dict ``out`` [B, out_bytes] uint8 (a framed
     member, or a bare deflate chunk in stream mode), ``out_len`` [B] int32,
     ``check`` [B] int64 (a member's CRC32; in stream mode the block's
-    ``cfg.checksum``: crc32, adler32, or zeros for 'none')."""
+    ``cfg.checksum``: crc32, adler32, or zeros for 'none'); with
+    ``compact=True`` also ``flat`` (:func:`compact_outputs`)."""
     b, n = data_u8.shape
     if n != cfg.block_len:
         raise ValueError(f"block width {n} != config block_len {cfg.block_len}")
+    with span("gzp.encode.entries"):
+        all_bits, all_n = block_entries(cfg, ext, marked, l, match_dist, is_final)
+    with span("gzp.encode.pack"):
+        words, total_bits = pack_entries_sortscan_cuda(all_bits, all_n, 8 * cfg.header_len,
+                                                       cfg.out_words)
+    with span("gzp.encode.finish"):
+        res = _finish_stage(cfg, data_u8, lengths, is_final, words, total_bits)
+        if compact:
+            res["flat"] = compact_outputs(res["out"], res["out_len"])
+    return res
+
+
+def _finish_stage(cfg: DeflateEncodeConfig, data_u8, lengths, is_final, words, total_bits):
+    """Stage 5 without the compaction: the sync-flush trailer or member
+    framing, and the checksum (see :func:`emit_stage`)."""
+    b = data_u8.shape[0]
     member = cfg.mode != "stream"
-    all_bits, all_n = block_entries(cfg, ext, marked, l, match_dist, is_final)
     hl = cfg.header_len
-    words, total_bits = pack_entries_sortscan_cuda(all_bits, all_n, 8 * hl, cfg.out_words)
     if member:
         end_bits = (total_bits.to(I64) + 7) & ~7
     else:
@@ -433,11 +453,10 @@ def get_encoder(cfg: DeflateEncodeConfig, compact: bool = False):
 
     def encode(data_u8: torch.Tensor, lengths: torch.Tensor, is_final: torch.Tensor,
                halo: torch.Tensor | None = None, dict_lens: torch.Tensor | None = None) -> dict:
-        ext, match_len, match_dist = match_stage(cfg, data_u8, lengths, halo, dict_lens)
-        marked, l = parse_stage(cfg, match_len, lengths)
-        res = emit_stage(cfg, data_u8, ext, lengths, is_final, marked, l, match_dist)
-        if compact:
-            res["flat"] = compact_outputs(res["out"], res["out_len"])
-        return res
+        with span("gzp.encode.match"):
+            ext, match_len, match_dist = match_stage(cfg, data_u8, lengths, halo, dict_lens)
+        with span("gzp.encode.parse"):
+            marked, l = parse_stage(cfg, match_len, lengths)
+        return emit_stage(cfg, data_u8, ext, lengths, is_final, marked, l, match_dist, compact)
 
     return encode

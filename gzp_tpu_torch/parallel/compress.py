@@ -60,6 +60,7 @@ from gzp_tpu_torch.formats.base import FormatSpec
 from gzp_tpu_torch.ops import host_codec
 from gzp_tpu_torch.ops.deflate_kernel import DeflateEncodeConfig, get_encoder
 from gzp_tpu_torch.ops.snappy_kernel import SnappyEncodeConfig, get_snappy_encoder
+from gzp_tpu_torch.runtime.telemetry import span
 from gzp_tpu_torch.utils.serialize import put_le
 from gzp_tpu_torch.utils.snappy_ref import decode_frames
 
@@ -194,6 +195,7 @@ class ParCompress:
         self._buffer = bytearray()
         self._carry = preset_carry[-DICT_SIZE:] if preset_carry else b""
         self._inflight: collections.deque = collections.deque()
+        self._seq = 0  # the next batch's number, for its spans
         self._check = format_spec.create_check()
         self._header_written = not emit_header
         self._finished = False
@@ -234,11 +236,14 @@ class ParCompress:
         self._buffer += data
         batch_bytes = self.block_size * self.batch
         while len(self._buffer) >= batch_bytes:
-            chunk = self._buffer[:batch_bytes]
-            del self._buffer[:batch_bytes]
-            arr = np.frombuffer(chunk, dtype=np.uint8).reshape(self.batch, self.block_size)
-            self._dispatch(arr, np.full(self.batch, self.block_size, dtype=np.int32),
-                           np.zeros(self.batch, dtype=bool))
+            seq, self._seq = self._seq, self._seq + 1
+            with span("gzp.compress.dispatch", seq):
+                chunk = self._buffer[:batch_bytes]
+                del self._buffer[:batch_bytes]
+                arr = np.frombuffer(chunk, dtype=np.uint8).reshape(self.batch, self.block_size)
+                self._dispatch(seq, arr, np.full(self.batch, self.block_size, dtype=np.int32),
+                               np.zeros(self.batch, dtype=bool))
+            self._drain(self.queue_depth)
         return len(data)
 
     def flush(self) -> None:
@@ -248,7 +253,7 @@ class ParCompress:
         if self._buffer:
             self._dispatch_tail(bytes(self._buffer), final=False)
             self._buffer.clear()
-        self._drain_all()
+        self._drain(0)
         self.writer.flush()
 
     def finish(self):
@@ -259,7 +264,7 @@ class ParCompress:
         data = bytes(self._buffer)
         self._buffer.clear()
         self._dispatch_tail(data, final=self._final_on_finish)
-        self._drain_all()
+        self._drain(0)
         if not self._header_written:
             self._write_header()
         if self._emit_footer:
@@ -361,23 +366,28 @@ class ParCompress:
         if not data and self._member and (self._emitted_any or self._inflight):
             return
         while True:
-            take, data = data[: n * b], data[n * b:]
-            cnt = -(-len(take) // n) if take else 1
-            arr = np.zeros((b, n), dtype=np.uint8)
-            lengths = np.zeros(b, dtype=np.int32)
-            finals = np.zeros(b, dtype=bool)
-            for i in range(cnt):
-                piece = take[i * n: (i + 1) * n]
-                arr[i, : len(piece)] = np.frombuffer(piece, dtype=np.uint8)
-                lengths[i] = len(piece)
-            if final and not data:
-                finals[cnt - 1] = True
-                self._wrote_final_block = True
-            self._dispatch(arr, lengths, finals, count=cnt)
+            seq, self._seq = self._seq, self._seq + 1
+            with span("gzp.compress.dispatch", seq):
+                take, data = data[: n * b], data[n * b:]
+                cnt = -(-len(take) // n) if take else 1
+                arr = np.zeros((b, n), dtype=np.uint8)
+                lengths = np.zeros(b, dtype=np.int32)
+                finals = np.zeros(b, dtype=bool)
+                for i in range(cnt):
+                    piece = take[i * n: (i + 1) * n]
+                    arr[i, : len(piece)] = np.frombuffer(piece, dtype=np.uint8)
+                    lengths[i] = len(piece)
+                if final and not data:
+                    finals[cnt - 1] = True
+                    self._wrote_final_block = True
+                self._dispatch(seq, arr, lengths, finals, count=cnt)
+            self._drain(self.queue_depth)
             if not data:
                 return
 
-    def _dispatch(self, arr, lengths, finals, count: int | None = None) -> None:
+    def _dispatch(self, seq: int, arr, lengths, finals, count: int | None = None) -> None:
+        """Launch batch ``seq`` and queue it; the caller drains the queue
+        to its depth."""
         # the halo spans the whole batch before a mesh splits it: the first
         # row of a device's share gets the last row of the share before
         halo, dict_lens = self._make_halo(arr, lengths)
@@ -388,33 +398,34 @@ class ParCompress:
         except Exception as e:  # launch failure
             self._error = e
             raise
-        self._inflight.append((res, arr, lengths, finals, count or len(lengths)))
-        while len(self._inflight) > self.queue_depth:
-            self._consume_one()
+        self._inflight.append((seq, res, arr, lengths, finals, count or len(lengths)))
 
-    def _drain_all(self) -> None:
-        while self._inflight:
+    def _drain(self, depth: int) -> None:
+        """Stitch the oldest batches until ``depth`` are in flight."""
+        while len(self._inflight) > depth:
             self._consume_one()
 
     def _consume_one(self) -> None:
-        res, arr, lengths, finals, count = self._inflight.popleft()
+        seq, res, arr, lengths, finals, count = self._inflight.popleft()
         try:
-            # fetch exactly sum(out_len) bytes of each device's share, not
-            # the padded rows; the shares end to end in device order
-            lens = [r["out_len"].cpu().numpy() for r in res]
-            chks = np.concatenate([r["check"].cpu().numpy() for r in res])
-            flats = [r["flat"][: int(n.sum())].cpu().numpy() for r, n in zip(res, lens)]
-            out_len = np.concatenate(lens)
-            flat = flats[0] if len(flats) == 1 else np.concatenate(flats)
-            starts = np.cumsum(out_len) - out_len
+            with span("gzp.compress.fetch", seq):
+                # fetch exactly sum(out_len) bytes of each device's share,
+                # not the padded rows; the shares end to end in device order
+                lens = [r["out_len"].cpu().numpy() for r in res]
+                chks = np.concatenate([r["check"].cpu().numpy() for r in res])
+                flats = [r["flat"][: int(n.sum())].cpu().numpy() for r, n in zip(res, lens)]
+            with span("gzp.compress.stitch", seq):
+                out_len = np.concatenate(lens)
+                flat = flats[0] if len(flats) == 1 else np.concatenate(flats)
+                starts = np.cumsum(out_len) - out_len
 
-            def get_blob(i):
-                s = int(starts[i])
-                return flat[s: s + int(out_len[i])].tobytes()
+                def get_blob(i):
+                    s = int(starts[i])
+                    return flat[s: s + int(out_len[i])].tobytes()
 
-            if not self._header_written:
-                self._write_header()
-            self._stitch_batch(get_blob, chks, arr, lengths, finals, count)
+                if not self._header_written:
+                    self._write_header()
+                self._stitch_batch(get_blob, chks, arr, lengths, finals, count)
         except Exception as e:
             # poison the writer; the root error is preserved and re-raised
             # (reference error-transparency, src/par/compress.rs:428-457)
@@ -423,6 +434,7 @@ class ParCompress:
 
     def _stitch_batch(self, get_blob, chks, arr, lengths, finals, count) -> None:
         pieces: list[bytes] = []
+        sums: list[tuple[int, int]] = []  # each emitted block's (check, length), in order
         for i in range(count):
             ln = int(lengths[i])
             fin = bool(finals[i])
@@ -438,9 +450,12 @@ class ParCompress:
             blob = self._maybe_fallback(blob, raw, ln, fin, chk)
             if self._verify:
                 blob, chk = self._verify_or_repair(blob, raw, ln, fin, chk)
-            self._check.combine_sum(chk, ln)
+            sums.append((chk, ln))
             pieces.append(blob)
             self._emitted_any = True
+        with span("gzp.compress.combine"):
+            for chk, ln in sums:
+                self._check.combine_sum(chk, ln)
         if pieces:
             self.writer.write(b"".join(pieces))
 

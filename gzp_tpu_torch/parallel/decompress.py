@@ -35,6 +35,7 @@ from gzp_tpu_torch.errors import (
 from gzp_tpu_torch.formats.base import BlockFormatSpec
 from gzp_tpu_torch.parallel.compress import resolve_device
 from gzp_tpu_torch.runtime import get_native
+from gzp_tpu_torch.runtime.telemetry import span
 from gzp_tpu_torch.utils.io import read_exact
 
 DEFAULT_DECOMPRESS_THREADS = 8
@@ -100,7 +101,8 @@ class ParDecompress(io.RawIOBase):
         # bounded lookahead = backpressure (reference bounds its channels
         # at 2x num_threads, src/par/decompress.rs:70,142)
         self.queue_depth = queue_depth or num_threads * 2
-        self._pending: list = []
+        self._pending: list = []  # (device batch number or None for a block, future)
+        self._seq = 0  # the next device batch's number, for its spans
         self._buffer = bytearray()
         self._eof = False
         self._closed = False
@@ -138,35 +140,39 @@ class ParDecompress(io.RawIOBase):
     def _fill_pipeline(self) -> None:
         while not self._eof and len(self._pending) < self.queue_depth:
             if self.backend == "device":
-                batch = []
-                while len(batch) < self._device_batch:
-                    block = self._scan_one()
-                    if block is None:
-                        self._eof = True
-                        break
-                    batch.append(block)
-                if batch:
-                    # staging, dispatch and gather on a pool thread, so the
-                    # caller's read() overlaps them with the next scan
-                    self._pending.append(
-                        self.pool.submit(
-                            lambda blocks=batch: _DeviceBatch(self.format, blocks, self).result()
-                        )
-                    )
+                seq = self._seq
+                with span("gzp.decompress.scan", seq):
+                    batch = []
+                    while len(batch) < self._device_batch:
+                        block = self._scan_one()
+                        if block is None:
+                            self._eof = True
+                            break
+                        batch.append(block)
+                    if batch:
+                        # staging, dispatch and gather on a pool thread, so
+                        # the caller's read() overlaps them with the next scan
+                        self._seq += 1
+                        self._pending.append((seq, self.pool.submit(
+                            lambda blocks=batch: _DeviceBatch(self.format, blocks, self,
+                                                              seq).result())))
             else:
                 block = self._scan_one()
                 if block is None:
                     self._eof = True
                     break
-                self._pending.append(self.pool.submit(_decode_block, self.format, block))
+                self._pending.append((None, self.pool.submit(_decode_block, self.format, block)))
 
     def _next_chunk(self) -> bytes | None:
         self._fill_pipeline()
         if not self._pending:
             return None
-        fut = self._pending.pop(0)
+        seq, fut = self._pending.pop(0)
         self._fill_pipeline()
-        return fut.result()
+        if seq is None:  # a block of the native backend: no span a block
+            return fut.result()
+        with span("gzp.decompress.wait", seq):
+            return fut.result()
 
     # -- read API --
 
@@ -203,7 +209,7 @@ class ParDecompress(io.RawIOBase):
         chunks = [bytes(self._buffer)]
         self._buffer.clear()
         pending, self._pending = self._pending, []
-        chunks.extend(f.result() for f in pending)
+        chunks.extend(f.result() for _, f in pending)
 
         fmt = self.format
         blocks: list[bytes] = []
@@ -278,29 +284,38 @@ def stage_blocks(fmt: BlockFormatSpec, blocks: list[bytes], in_cap: int, out_cap
 
 
 class _DeviceBatch:
-    """One device-inflate batch: ``result()`` gathers the outputs, checks
-    each block's CRC and sends each block the device did not decode to the
-    native path."""
+    """One device-inflate batch, number ``seq`` of its reader: construction
+    stages it and issues K11 (span ``gzp.decompress.stage``); ``result()``
+    gathers the outputs, checks each block's CRC and sends each block the
+    device did not decode to the native path (span
+    ``gzp.decompress.gather``)."""
 
     # caps sized for BGZF/Mgzip members (a compressed BGZF member is < 64
     # KiB); larger foreign Mgzip blocks go to the native path
     IN_CAP = 65536
     OUT_CAP = 65536
 
-    def __init__(self, fmt: BlockFormatSpec, blocks: list[bytes], owner: ParDecompress):
+    def __init__(self, fmt: BlockFormatSpec, blocks: list[bytes], owner: ParDecompress,
+                 seq: int):
         from gzp_tpu_torch.ops.inflate_kernel import InflateConfig, get_inflater
 
         self.fmt = fmt
         self.blocks = blocks
         self.owner = owner
-        self.footers = [fmt.get_footer_values(blk) for blk in blocks]
-        *inputs, self.native_idx = stage_blocks(fmt, blocks, self.IN_CAP, self.OUT_CAP)
-        self.res = None  # a batch wholly over the caps never reaches the device
-        if len(self.native_idx) < len(blocks):
-            run = get_inflater(InflateConfig(in_cap=self.IN_CAP, out_cap=self.OUT_CAP))
-            self.res = run(*(torch.from_numpy(x).to(owner.device) for x in inputs))
+        self.seq = seq
+        with span("gzp.decompress.stage", seq):
+            self.footers = [fmt.get_footer_values(blk) for blk in blocks]
+            *inputs, self.native_idx = stage_blocks(fmt, blocks, self.IN_CAP, self.OUT_CAP)
+            self.res = None  # a batch wholly over the caps never reaches the device
+            if len(self.native_idx) < len(blocks):
+                run = get_inflater(InflateConfig(in_cap=self.IN_CAP, out_cap=self.OUT_CAP))
+                self.res = run(*(torch.from_numpy(x).to(owner.device) for x in inputs))
 
     def result(self) -> bytes:
+        with span("gzp.decompress.gather", self.seq):
+            return self._gather()
+
+    def _gather(self) -> bytes:
         if self.res is not None:
             out, ok, crc = (self.res[k].cpu().numpy() for k in ("out", "ok", "crc"))
         pieces = []

@@ -1,0 +1,13 @@
+"""Host milliseconds per batch in the span ``gzp.compress.dispatch``: the cut
+of a batch, its halo and carry, the pinned copies to the device and the
+glue around the encoder (see ``span_ms.py``)."""
+
+from pathlib import Path
+
+from portbench.harness import load_module
+
+_per_batch = load_module(Path(__file__).with_name("span_ms.py")).per_batch
+
+
+def read(s: dict) -> float | None:
+    return _per_batch(s, "compress", "gzp.compress.dispatch")

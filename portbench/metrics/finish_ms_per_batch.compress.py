@@ -1,0 +1,13 @@
+"""Host milliseconds per batch in the span ``gzp.encode.finish``: the host
+issuing the trailer or member framing, the checksum and the compaction
+(see ``span_ms.py``)."""
+
+from pathlib import Path
+
+from portbench.harness import load_module
+
+_per_batch = load_module(Path(__file__).with_name("span_ms.py")).per_batch
+
+
+def read(s: dict) -> float | None:
+    return _per_batch(s, "compress", "gzp.encode.finish")

@@ -1,0 +1,12 @@
+"""Host milliseconds per batch in the span ``gzp.encode.parse``: the host
+issuing the greedy parse's device work (see ``span_ms.py``)."""
+
+from pathlib import Path
+
+from portbench.harness import load_module
+
+_per_batch = load_module(Path(__file__).with_name("span_ms.py")).per_batch
+
+
+def read(s: dict) -> float | None:
+    return _per_batch(s, "compress", "gzp.encode.parse")
