@@ -6,11 +6,15 @@ src/check.rs:16-198): a :class:`Check` interface with ``update``,
 Adler32 (zlib), CRC32C (snappy frame CRCs) and a pass-through.
 
 ``combine`` is the pigz "COMB" trick: given checksums of two adjacent
-byte ranges, produce the checksum of their concatenation in O(log n)
-without rescanning — this is what lets block-parallel compression emit a
-whole-stream checksum. The GF(2) matrix math for CRC combine is
-implemented from first principles below (same linear-algebra approach as
-zlib's ``crc32_combine``); Adler combine is modular arithmetic.
+byte ranges, produce the checksum of their concatenation without
+rescanning — this is what lets block-parallel compression emit a
+whole-stream checksum. A CRC combine applies the operator "advance the
+register past len(B) zero bytes", which depends on the length alone: as in
+zlib's ``crc32_combine_gen``/``crc32_combine_op``, it is x^(8·len) mod P,
+composed from a table of x^(8·2^k) mod P and kept in a small cache per
+length as four byte tables, so a stream of equal blocks builds it once and
+then pays four lookups a block (``combine_stats`` counts both). Adler
+combine is modular arithmetic.
 
 Host-side ``update`` uses ``zlib.crc32``/``zlib.adler32`` (these are
 checks, not codecs — the reference likewise delegates to flate2/zlib-ng,
@@ -22,6 +26,7 @@ batched checksums live in ``gzp_tpu_torch.ops.checksum``.
 from __future__ import annotations
 
 import functools
+import threading
 import zlib
 
 import numpy as np
@@ -33,6 +38,8 @@ __all__ = [
     "Crc32C",
     "PassThroughCheck",
     "crc32_combine",
+    "combine_stats",
+    "reset_combine_stats",
     "adler32_combine",
     "crc32c",
     "crc32c_combine",
@@ -40,7 +47,6 @@ __all__ = [
     "CRC32_POLY",
     "CRC32C_POLY",
     "crc_table",
-    "crc_shift_operator_matrix",
     "crc_operator_tables",
     "apply_operator_tables",
 ]
@@ -55,15 +61,17 @@ ADLER_MOD = 65521
 
 
 # ---------------------------------------------------------------------------
-# GF(2) linear-operator machinery for CRC combine.
+# GF(2) linear-operator machinery for CRC shifts.
 #
 # Processing input bits through a (reflected) CRC register is linear over
 # GF(2) in the register state. The operator "advance the register past one
 # zero bit" is a 32x32 bit-matrix; advancing past N zero bytes is that
-# matrix to the 8N-th power. crc(A || B) can then be computed as
-# op_{len(B)}(crc(A)) XOR crc(B) where crc() here is the raw register
-# with standard pre/post-conditioning folded in (the conditioning terms
-# cancel exactly as in zlib's crc32_combine).
+# matrix to the 8N-th power. crc(A || B) is then op_{len(B)}(crc(A)) XOR
+# crc(B), where crc() here is the raw register with standard
+# pre/post-conditioning folded in (the conditioning terms cancel exactly as
+# in zlib's crc32_combine). The matrices build the inverse shift for the
+# device-side tables (ops/tables.py); forward shifts are built in
+# polynomial form, below.
 # ---------------------------------------------------------------------------
 
 
@@ -98,26 +106,88 @@ def _zero_bit_operator(poly: int) -> list[int]:
     return mat
 
 
+# ---------------------------------------------------------------------------
+# The shift operator, as zlib builds it (crc32_combine_gen).
+#
+# In a reflected register bit 31 holds x^0 and bit 0 holds x^31, so a
+# register is a polynomial of degree < 32 and advancing it past n zero bytes
+# multiplies it by x^(8n) mod P, composed from a table of x^(8·2^k) mod P
+# with one product a set bit of n. The product is linear in the register:
+# its images of the 32 register bits are the operator's matrix, which
+# ``crc_operator_tables`` turns into four byte tables. The combine keeps
+# those tables per length in a small cache, so a stream of equal blocks
+# builds them once and then pays four lookups a block.
+# ---------------------------------------------------------------------------
+
+combine_stats = {"combined": 0, "operators_built": 0}
+_stats_lock = threading.Lock()  # writers on several threads share the counts
+
+
+def _multmodp(a: int, b: int, poly: int) -> int:
+    """a·b mod P for reflected polynomials (zlib's multmodp)."""
+    m = 1 << 31
+    p = 0
+    while True:
+        if a & m:
+            p ^= b
+            if not a & (m - 1):
+                return p
+        m >>= 1
+        b = (b >> 1) ^ poly if b & 1 else b >> 1
+
+
+@functools.cache
+def _x8_pow2(k: int, poly: int) -> int:
+    """x^(8·2^k) mod P: the operator for 2^k zero bytes."""
+    if k == 0:
+        return 1 << 23  # x^8
+    half = _x8_pow2(k - 1, poly)
+    return _multmodp(half, half, poly)
+
+
+def _shift_columns(nbytes: int, poly: int) -> list[int]:
+    """Column images of the operator advancing a register past ``nbytes``
+    zero bytes; exact for any length, 2^32 and beyond."""
+    op = 1 << 31  # x^0
+    k = 0
+    while nbytes:
+        if nbytes & 1:
+            op = _multmodp(_x8_pow2(k, poly), op, poly)
+        nbytes >>= 1
+        k += 1
+    # bit 31 (x^0) maps to op, and each lower bit to the one above it times x
+    cols = [0] * 32
+    for j in range(31, -1, -1):
+        cols[j] = op
+        op = (op >> 1) ^ poly if op & 1 else op >> 1
+    return cols
+
+
+@functools.lru_cache(maxsize=64)
+def _shift_tables(len2: int, poly: int) -> list[list[int]]:
+    """The combine's operator for ``len2`` zero bytes, as four byte tables
+    of Python ints (faster to index than numpy's)."""
+    with _stats_lock:
+        combine_stats["operators_built"] += 1
+    return crc_operator_tables(len2, poly).tolist()
+
+
+def reset_combine_stats() -> None:
+    """Zero ``combine_stats``; the cached operators stay."""
+    with _stats_lock:
+        combine_stats.update(combined=0, operators_built=0)
+
+
 def _crc_combine(crc1: int, crc2: int, len2: int, poly: int) -> int:
     """Combine CRCs of adjacent ranges: crc(A||B) from crc(A), crc(B), len(B)."""
+    with _stats_lock:
+        combine_stats["combined"] += 1
+    crc1 &= U32
     if len2 == 0:
-        return crc1 & U32
-    # Build the "advance past one zero byte" operator (square the 1-bit
-    # operator three times: 1 -> 2 -> 4 -> 8 bits), then exponentiate it to
-    # len2 via binary expansion, applying to crc1 along the way.
-    op = _zero_bit_operator(poly)
-    op = _gf2_matrix_square(op)
-    op = _gf2_matrix_square(op)
-    op = _gf2_matrix_square(op)  # now advances 8 bits = 1 zero byte
-    crc = crc1 & U32
-    n = len2
-    while n:
-        if n & 1:
-            crc = _gf2_matrix_times(op, crc)
-        n >>= 1
-        if n:
-            op = _gf2_matrix_square(op)
-    return (crc ^ crc2) & U32
+        return crc1
+    t0, t1, t2, t3 = _shift_tables(len2, poly)
+    return (t0[crc1 & 0xFF] ^ t1[(crc1 >> 8) & 0xFF] ^ t2[(crc1 >> 16) & 0xFF]
+            ^ t3[crc1 >> 24] ^ crc2) & U32
 
 
 def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
@@ -262,39 +332,20 @@ def gf2_matrix_invert(mat: list[int]) -> list[int]:
     return inv
 
 
-def crc_shift_operator_matrix(nbytes: int, poly: int) -> list[int]:
-    """32x32 GF(2) matrix (column images) advancing the register past
-    ``nbytes`` zero bytes."""
-    op = _zero_bit_operator(poly)
-    # op now advances 1 bit; raise to the 8*nbytes power via binary expansion.
-    result: list[int] | None = None
-    n = nbytes * 8
-    while n:
-        if n & 1:
-            if result is None:
-                result = list(op)
-            else:
-                result = [_gf2_matrix_times(op, result[c]) for c in range(32)]
-        op = _gf2_matrix_square(op)
-        n >>= 1
-    if result is None:  # nbytes == 0 -> identity
-        result = [1 << n for n in range(32)]
-    return result
+def _columns_to_tables(cols: list[int]) -> np.ndarray:
+    """32x32 GF(2) matrix (column images) -> [4, 256] uint32 byte tables."""
+    tables = np.zeros((4, 256), dtype=np.uint32)
+    idx = np.arange(256)
+    for byte_idx in range(4):
+        for bit in range(8):
+            mask = ((idx >> bit) & 1).astype(bool)
+            tables[byte_idx, mask] ^= np.uint32(cols[byte_idx * 8 + bit])
+    return tables
 
 
 def crc_operator_tables(nbytes: int, poly: int) -> np.ndarray:
     """Materialize O_{nbytes} as a [4, 256] uint32 lookup-table array."""
-    mat = crc_shift_operator_matrix(nbytes, poly)
-    tables = np.zeros((4, 256), dtype=np.uint32)
-    for byte_idx in range(4):
-        vals = np.zeros(256, dtype=np.uint32)
-        for bit in range(8):
-            col = np.uint32(mat[byte_idx * 8 + bit])
-            idx = np.arange(256)
-            mask = ((idx >> bit) & 1).astype(bool)
-            vals[mask] ^= col
-        tables[byte_idx] = vals
-    return tables
+    return _columns_to_tables(_shift_columns(nbytes, poly))
 
 
 def apply_operator_tables(tables: np.ndarray, crc: np.ndarray) -> np.ndarray:
@@ -314,7 +365,7 @@ def apply_operator_tables(tables: np.ndarray, crc: np.ndarray) -> np.ndarray:
 
 
 class Check:
-    """Streaming checksum with O(log) range combine (reference src/check.rs:16-35)."""
+    """Streaming checksum with range combine (reference src/check.rs:16-35)."""
 
     name = "check"
 

@@ -106,7 +106,7 @@ def crc_unshift_ladder(max_log: int, poly: int) -> np.ndarray:
     levels = []
     cur = inv1
     for _ in range(max_log):
-        levels.append(_matrix_to_tables(cur))
+        levels.append(_check._columns_to_tables(cur))
         cur = _check._gf2_matrix_square(cur)
     return np.stack(levels, axis=0)
 
@@ -115,29 +115,7 @@ def crc_unshift_ladder(max_log: int, poly: int) -> np.ndarray:
 def crc_shift_ladder(max_log: int, poly: int) -> np.ndarray:
     """``[max_log, 4, 256]`` tables; level k advances a register past
     ``2**k`` zero bytes (forward shift operator)."""
-    one = _check._zero_bit_operator(poly)
-    for _ in range(3):
-        one = _check._gf2_matrix_square(one)
-    levels = []
-    cur = one
-    for _ in range(max_log):
-        levels.append(_matrix_to_tables(cur))
-        cur = _check._gf2_matrix_square(cur)
-    return np.stack(levels, axis=0)
-
-
-def _matrix_to_tables(mat: list[int]) -> np.ndarray:
-    """32x32 GF(2) matrix -> [4, 256] uint32 byte-lookup tables."""
-    tables = np.zeros((4, 256), dtype=np.uint32)
-    for byte_idx in range(4):
-        vals = np.zeros(256, dtype=np.uint32)
-        idx = np.arange(256)
-        for bit in range(8):
-            col = np.uint32(mat[byte_idx * 8 + bit])
-            mask = ((idx >> bit) & 1).astype(bool)
-            vals[mask] ^= col
-        tables[byte_idx] = vals
-    return tables
+    return np.stack([_check.crc_operator_tables(1 << k, poly) for k in range(max_log)])
 
 
 @functools.cache

@@ -18,8 +18,8 @@ fed over bounded channels, and an ordered writer stitching results. Here:
   32 KiB of the block before it as a halo its matches may reach into
   (reference src/par/compress.rs:417-423), across batches too;
 * per-block checksums come back with each batch and are folded into the
-  stream check by O(log) combine (pigz COMB, reference
-  src/par/compress.rs:302-313).
+  stream check by combine (pigz COMB, reference
+  src/par/compress.rs:302-313), one cached shift operator per block length.
 
 The encoder runs on ``cuda:0`` unless the caller passes another device;
 ``device="cpu"`` runs the same code on the CPU (the plain versions of the
