@@ -21,10 +21,16 @@ literal elements; each position contributes at most one <= 24-bit entry,
 and the whole frame body (varint preamble included, as a dynamic-width
 head entry) is assembled by the sort-scan packer (K10 plus a scatter,
 ``ops/pack_cuda.py``) behind the 18-byte frame header.
+
+The stages run inside the Deflate encoder's spans (``runtime/telemetry.py``):
+``gzp.encode.match`` (the matcher), ``gzp.encode.entries`` (the parse and
+the entries), ``gzp.encode.pack`` (K10 and its scatter) and
+``gzp.encode.finish`` (frame header, masked CRC32C, compaction).
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -35,6 +41,7 @@ from gzp_tpu_torch.ops.checksum import crc32c_masked_device
 from gzp_tpu_torch.ops.deflate_kernel import _le_bytes, compact_outputs
 from gzp_tpu_torch.ops.lz_cuda import best_matches_cuda
 from gzp_tpu_torch.ops.pack_cuda import pack_entries_sortscan_cuda
+from gzp_tpu_torch.runtime.telemetry import span
 
 I64 = torch.int64
 
@@ -161,7 +168,8 @@ def encode_snappy_blocks(cfg: SnappyEncodeConfig, data_u8, lengths, is_final):
     """Compress a batch of blocks into framed snappy. Returns the deflate
     encoder's output contract: ``out`` [B, out_bytes] uint8, ``out_len``
     [B] int32, ``check`` [B] int64 (masked CRC32C of the uncompressed
-    chunk, also embedded in the frame). An empty block is the 10-byte
+    chunk, also embedded in the frame), and ``flat``, the frames end to end
+    (``deflate_kernel.compact_outputs``). An empty block is the 10-byte
     stream identifier alone."""
     del is_final  # snappy frames need no stream-close marker
     b, n = data_u8.shape
@@ -169,38 +177,36 @@ def encode_snappy_blocks(cfg: SnappyEncodeConfig, data_u8, lengths, is_final):
         raise ValueError(f"block width {n}: config block_len {cfg.block_len}, "
                          f"at most {SNAPPY_MAX_CHUNK}")
     dev = data_u8.device
-    match_len, match_dist = best_matches_cuda(
-        data_u8, lengths, max_dist=SNAPPY_MAX_CHUNK - 1, max_match=cfg.max_match,
-        min_emit=SNAPPY_MIN_MATCH, payload_words=cfg.payload_words, lags=cfg.lags,
-    )
-    all_bits, all_n = snappy_entries(cfg, data_u8, lengths, match_len, match_dist)
-    words, total_bits = pack_entries_sortscan_cuda(all_bits, all_n, HEADER_BITS,
-                                                   cfg.out_bytes // 4)
-    ln = lengths.to(I64)
-    varint_len = _varint_len(ln)
-    elem_total = (total_bits.to(I64) >> 3) - _HDR - varint_len
-    out = _le_bytes(words, 4).reshape(b, cfg.out_bytes)
+    with span("gzp.encode.match"):
+        match_len, match_dist = best_matches_cuda(
+            data_u8, lengths, max_dist=SNAPPY_MAX_CHUNK - 1, max_match=cfg.max_match,
+            min_emit=SNAPPY_MIN_MATCH, payload_words=cfg.payload_words, lags=cfg.lags,
+        )
+    with span("gzp.encode.entries"):
+        all_bits, all_n = snappy_entries(cfg, data_u8, lengths, match_len, match_dist)
+    with span("gzp.encode.pack"):
+        words, total_bits = pack_entries_sortscan_cuda(all_bits, all_n, HEADER_BITS,
+                                                       cfg.out_bytes // 4)
+    with span("gzp.encode.finish"):
+        ln = lengths.to(I64)
+        varint_len = _varint_len(ln)
+        elem_total = (total_bits.to(I64) >> 3) - _HDR - varint_len
+        out = _le_bytes(words, 4).reshape(b, cfg.out_bytes)
 
-    # ----- frame headers -----
-    out[:, :10] = torch.tensor(list(SNAPPY_STREAM_IDENTIFIER), dtype=torch.uint8, device=dev)
-    out[:, 10] = 0  # chunk type 0x00: compressed data
-    out[:, 11:14] = _le_bytes(4 + varint_len + elem_total, 3)
-    crc = crc32c_masked_device(data_u8, lengths)
-    out[:, 14:18] = _le_bytes(crc, 4)
-    out_len = torch.where(ln > 0, _HDR + varint_len + elem_total, 10)
-    return {"out": out, "out_len": out_len.to(torch.int32), "check": crc}
+        # ----- frame headers -----
+        out[:, :10] = torch.tensor(list(SNAPPY_STREAM_IDENTIFIER), dtype=torch.uint8,
+                                   device=dev)
+        out[:, 10] = 0  # chunk type 0x00: compressed data
+        out[:, 11:14] = _le_bytes(4 + varint_len + elem_total, 3)
+        crc = crc32c_masked_device(data_u8, lengths)
+        out[:, 14:18] = _le_bytes(crc, 4)
+        out_len = torch.where(ln > 0, _HDR + varint_len + elem_total, 10).to(torch.int32)
+        flat = compact_outputs(out, out_len)
+    return {"out": out, "out_len": out_len, "check": crc, "flat": flat}
 
 
 def get_snappy_encoder(cfg: SnappyEncodeConfig):
     """Batched snappy encoder for a config: ``encode(data_u8 [B, N] uint8,
     lengths [B] int32, is_final [B] bool) -> dict`` (see
-    :func:`encode_snappy_blocks`), with ``flat`` as well, the frames end to
-    end (``deflate_kernel.compact_outputs``). Runs on the device of its
-    inputs."""
-
-    def encode(data_u8: torch.Tensor, lengths: torch.Tensor, is_final: torch.Tensor) -> dict:
-        res = encode_snappy_blocks(cfg, data_u8, lengths, is_final)
-        res["flat"] = compact_outputs(res["out"], res["out_len"])
-        return res
-
-    return encode
+    :func:`encode_snappy_blocks`). Runs on the device of its inputs."""
+    return functools.partial(encode_snappy_blocks, cfg)

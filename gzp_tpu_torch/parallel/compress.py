@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import collections
 import logging
+import threading
 import zlib
 from typing import BinaryIO
 
@@ -60,12 +61,24 @@ from gzp_tpu_torch.formats.base import FormatSpec
 from gzp_tpu_torch.ops import host_codec
 from gzp_tpu_torch.ops.deflate_kernel import DeflateEncodeConfig, get_encoder
 from gzp_tpu_torch.ops.snappy_kernel import SnappyEncodeConfig, get_snappy_encoder
-from gzp_tpu_torch.runtime.telemetry import span
+from gzp_tpu_torch.runtime.telemetry import recording, span
 from gzp_tpu_torch.utils.serialize import put_le
 from gzp_tpu_torch.utils.snappy_ref import decode_frames
 
 DEFAULT_NUM_THREADS = 16
 DEFAULT_QUEUE_DEPTH = 3
+
+# blocks ``ParCompress._stitch_batch`` emitted and those ``_maybe_fallback``
+# rewrote stored (a stored Deflate block or member, an uncompressed Snappy
+# chunk), counted only while a profiler records, as the spans are
+stored_stats = {"blocks": 0, "stored": 0}
+_stored_lock = threading.Lock()  # writers on several threads share the counts
+
+
+def reset_stored_stats() -> None:
+    """Zero ``stored_stats``."""
+    with _stored_lock:
+        stored_stats.update(blocks=0, stored=0)
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -435,6 +448,7 @@ class ParCompress:
     def _stitch_batch(self, get_blob, chks, arr, lengths, finals, count) -> None:
         pieces: list[bytes] = []
         sums: list[tuple[int, int]] = []  # each emitted block's (check, length), in order
+        stored = 0  # blocks ``_maybe_fallback`` rewrote stored
         for i in range(count):
             ln = int(lengths[i])
             fin = bool(finals[i])
@@ -447,7 +461,9 @@ class ParCompress:
             blob = get_blob(i)
             raw = arr[i, :ln].tobytes()
             chk = int(chks[i])
-            blob = self._maybe_fallback(blob, raw, ln, fin, chk)
+            fitted = self._maybe_fallback(blob, raw, ln, fin, chk)
+            stored += fitted is not blob
+            blob = fitted
             if self._verify:
                 blob, chk = self._verify_or_repair(blob, raw, ln, fin, chk)
             sums.append((chk, ln))
@@ -456,6 +472,10 @@ class ParCompress:
         with span("gzp.compress.combine"):
             for chk, ln in sums:
                 self._check.combine_sum(chk, ln)
+        if recording():
+            with _stored_lock:
+                stored_stats["blocks"] += len(sums)
+                stored_stats["stored"] += stored
         if pieces:
             self.writer.write(b"".join(pieces))
 

@@ -17,7 +17,9 @@ one batch share its number. Writing the spans out is the profiler's job
 :func:`totals` gives, per span name, ``count``, ``total_s`` and ``self_s``
 (the duration less the part covered by child spans on the same thread);
 :func:`reset` clears them. Spans opened on pool threads reach the totals;
-whether they reach the trace is up to the profiler.
+whether they reach the trace is up to the profiler. Counters kept beside
+the spans (``parallel.compress.stored_stats``) count only while
+:func:`recording`, so that they cover the same span of work.
 """
 
 from __future__ import annotations
@@ -42,6 +44,12 @@ def span(name: str, batch: int | None = None):
     if not _profiler._is_profiler_enabled:
         return OFF
     return _Span(name, batch)
+
+
+def recording() -> bool:
+    """Whether a profiler records: the condition under which spans and the
+    counters beside them record."""
+    return _profiler._is_profiler_enabled
 
 
 class _Span:
