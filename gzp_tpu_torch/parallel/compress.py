@@ -339,21 +339,18 @@ class ParCompress:
         d = getattr(self._cfg, "dict_size", 0)
         if not d:
             return None, None
-        b, n = arr.shape
+        b = arr.shape[0]
         halo = np.zeros((b, d), dtype=np.uint8)
         dict_lens = np.zeros(b, dtype=np.int32)
         if self._carry:
             cl = min(len(self._carry), d)
             halo[0, d - cl:] = np.frombuffer(self._carry[-cl:], np.uint8)
             dict_lens[0] = cl
-        if b > 1:
-            # row i gets arr[i-1, pl-cl : pl] right-aligned
-            pl = lengths[:-1].astype(np.int64)
-            cl = np.minimum(pl, d)
-            src = pl[:, None] - d + np.arange(d, dtype=np.int64)[None, :]
-            vals = np.take_along_axis(arr[:-1], np.clip(src, 0, n - 1), axis=1)
-            halo[1:] = np.where(src >= (pl - cl)[:, None], vals, 0)
-            dict_lens[1:] = cl
+        # row i gets arr[i-1, pl-cl : pl] right-aligned
+        for i, pl in enumerate(lengths[:-1].tolist(), 1):
+            cl = min(pl, d)
+            halo[i, d - cl:] = arr[i - 1, pl - cl: pl]
+            dict_lens[i] = cl
         return halo, dict_lens
 
     def _update_carry(self, arr: np.ndarray, lengths: np.ndarray, count: int) -> None:

@@ -1,7 +1,10 @@
 """Whole Gzip, Zlib and raw Deflate streams of the port against the JAX
 package at level 3: ``ZBuilder`` at 3 threads and sync on the inputs of
 ``test_torch_roundtrip.py``, and a ``write``/``flush``/``write``
-sequence. Both packages on the CPU; tolerance: exact equality of bytes.
+sequence; at levels 3 and 6 also blocks of 40,000 and 33,333 bytes
+(longer than the 32 KiB dictionary, no multiple of it), written whole
+and with a flush mid-block. Both packages on the CPU; tolerance: exact
+equality of bytes.
 (The stream encoder, Adler32 and the verify net are in
 ``test_torch_stream.py``; other levels and the shard knobs in
 ``test_torch_stream_shards.py``.)
@@ -58,10 +61,10 @@ DECODE = {
 }
 
 
-def _compress(pkg, fmt, threads, data, level=3, flush_at=None):
+def _compress(pkg, fmt, threads, data, level=3, flush_at=None, bs=BS):
     buf = io.BytesIO()
     z = pkg.ZBuilder(getattr(pkg, fmt)).num_threads(threads).compression_level(level)
-    z = z.buffer_size(BS)
+    z = z.buffer_size(bs)
     if pkg is gzp_tpu_torch:
         z = z.device("cpu")
     w = z.from_writer(buf)
@@ -75,14 +78,27 @@ def _compress(pkg, fmt, threads, data, level=3, flush_at=None):
     return buf.getvalue()
 
 
-@pytest.mark.parametrize("threads", [3, 1], ids=["threads3", "sync"])
-@pytest.mark.parametrize("name", list(INPUTS))
-@pytest.mark.parametrize("fmt", list(DECODE))
-def test_stream_bytes_identical_to_reference(fmt, name, threads):
+# (fmt, input, threads, level, block size, flush offset): every input at
+# level 3 and 32 KiB blocks, then blocks longer than the dictionary but not
+# a multiple of it at levels 3 and 6, written whole and with a flush at an
+# offset that is no multiple of the block (a short row mid-batch, a short
+# carry into the next batch)
+CASES = [pytest.param(fmt, name, threads, 3, BS, None, id=f"{fmt}-{name}-{tid}")
+         for fmt in DECODE for name in INPUTS
+         for threads, tid in ((3, "threads3"), (1, "sync"))]
+CASES += [pytest.param(fmt, "batches-and-tail", 3, level, bs, flush_at,
+                       id=f"{fmt}-batches-and-tail-bs{bs}-level{level}"
+                       + ("-flush" if flush_at else ""))
+          for fmt in DECODE for level in (3, 6) for bs in (40000, 33333)
+          for flush_at in (None, 61234)]
+
+
+@pytest.mark.parametrize("fmt,name,threads,level,bs,flush_at", CASES)
+def test_stream_bytes_identical_to_reference(fmt, name, threads, level, bs, flush_at):
     data = INPUTS[name]
-    ours = _compress(gzp_tpu_torch, fmt, threads, data)
+    ours = _compress(gzp_tpu_torch, fmt, threads, data, level, flush_at, bs)
     assert DECODE[fmt](ours) == data
-    assert ours == _compress(gzp_tpu, fmt, threads, data)
+    assert ours == _compress(gzp_tpu, fmt, threads, data, level, flush_at, bs)
 
 
 def test_write_flush_write_identical_to_reference():
