@@ -455,7 +455,7 @@ def level3_kernels(data, lengths, halo):
 
     # where one batch's device time goes, stage by stage (CUDA events)
     words_args = (all_bits, all_n, 8 * cfg.header_len, cfg.out_words)
-    encode = dk.get_encoder(cfg, compact=True)
+    encode = dk.get_encoder(cfg)
     finals = torch.zeros((B,), dtype=torch.bool, device=data.device)  # members ignore it
     stages = {
         "match": time_ms(lambda: dk.match_stage(cfg, data, lengths), iters=5),
@@ -607,7 +607,7 @@ def level6_kernels(data, lengths, halo):
     marked, ln = dk.parse_stage(cfg, ml, lengths)
     all_bits, all_n = dk.block_entries(cfg, data, marked, ln, md)
     words_args = (all_bits, all_n, 8 * cfg.header_len, cfg.out_words)
-    encode = dk.get_encoder(cfg, compact=True)
+    encode = dk.get_encoder(cfg)
     finals = torch.zeros((B,), dtype=torch.bool, device=data.device)  # members ignore it
     stages = {
         "match": time_ms(lambda: dk.match_stage(cfg, data, lengths), iters=5),
@@ -631,14 +631,11 @@ def level6_kernels(data, lengths, halo):
 
 def make_halo(arr, lengths):
     """The halos the writer builds for a batch with no carry
-    (``ParCompress._make_halo``): row i gets the last D bytes of row i - 1,
-    right-aligned; row 0 none (so its halo_start is D)."""
-    from types import SimpleNamespace
+    (``parallel/compress.py``'s ``make_halo``): row i gets the last D bytes
+    of row i - 1, right-aligned; row 0 none (so its halo_start is D)."""
+    from gzp_tpu_torch.parallel.compress import make_halo as writer_halo
 
-    from gzp_tpu_torch.parallel.compress import ParCompress
-
-    writer = SimpleNamespace(_cfg=SimpleNamespace(dict_size=D), _carry=b"")
-    return ParCompress._make_halo(writer, arr, lengths)
+    return writer_halo(arr, lengths, b"", D)
 
 
 def hash_checks(tag, data, lengths, hs, *, base, pw, lags, max_dist, max_match, min_emit,
@@ -745,7 +742,7 @@ def stream_checks(text, dev):
         window(2, 4 * cfg6.payload_words, n=D + N)
 
         # where one stream batch's device time goes (CUDA events)
-        encode = dk.get_encoder(cfg3, compact=True)
+        encode = dk.get_encoder(cfg3)
         words_args = (bits, nbits, 0, cfg3.out_words)
         stages = {
             "match": time_ms(lambda: dk.match_stage(cfg3, data, ln, halo, dict_lens), iters=5),

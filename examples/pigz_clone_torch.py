@@ -19,7 +19,7 @@ try:
 except ImportError:  # source checkout without `pip install -e .`
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from gzp_tpu_torch import ALL_FORMATS, ZBuilder
-from gzp_tpu_torch.parallel.compress import resolve_device
+from gzp_tpu_torch.parallel.mesh import resolve_device
 
 
 def main(argv=None) -> None:

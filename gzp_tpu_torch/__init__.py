@@ -13,7 +13,7 @@ C++ inflate (or, with ``backend='device'``, with the CUDA inflate kernel),
 ``MultiGzDecoder`` reads any gzip stream, the sync readers read one block
 at a time, and ``formats.snap.SnappyFrameDecoder`` reads Snappy frames.
 Compression scales out too: ``ZBuilder(...).mesh(devices)`` splits each
-batch over several devices (``MeshEncoder`` in ``parallel/compress.py``), and
+batch over several devices (``MeshEncoder`` in ``parallel/mesh.py``), and
 ``parallel/multihost.py`` splits one stream over processes, each
 compressing a contiguous block range, stitched in rank order. Entry
 points run on ``cuda:0`` unless given another device; ``device="cpu"``

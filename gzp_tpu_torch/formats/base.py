@@ -2,9 +2,9 @@
 
 Equivalent of the reference's ``FormatSpec`` / ``BlockFormatSpec`` traits
 (reference src/lib.rs:324-448), reshaped for the batched device pipeline: a format
-declares *static* codec configuration (which device kernel family, which
-framing mode, which checksums) plus pure byte-level header/footer logic.
-The parallel runtime in :mod:`gzp_tpu_torch.parallel` consumes these specs; the
+owns its byte-level header/footer logic and its block rules (which device
+encoder, the uncompressed block, the oracle that decodes a block). The
+parallel runtime in :mod:`gzp_tpu_torch.parallel` consumes these specs; the
 device kernels in :mod:`gzp_tpu_torch.ops` do the compression.
 """
 
@@ -32,26 +32,24 @@ class FormatSpec:
       * ``name``: identifier.
       * ``check_cls``: stream-level :class:`gzp_tpu_torch.check.Check` type
         (combined across blocks pigz-COMB style).
-      * ``codec``: device codec family — ``'deflate'`` or ``'snappy'``.
-      * ``kernel_mode``: framing mode of the device encoder —
-        ``'stream'`` (continuous deflate joined with sync flushes),
-        ``'mgzip'``/``'bgzf'`` (standalone member per block) or
-        ``'snappy'`` (snappy frame per block).
       * ``default_bufsize``: default uncompressed block size
         (reference ``DEFAULT_BUFSIZE``, src/lib.rs:330).
-      * ``needs_dict``: whether blocks want the previous block's trailing
-        32 KiB as a preset dictionary (zlib family only;
-        reference src/deflate.rs:79-82).
+      * ``max_input_block``: uncompressed block-size cap the writer
+        enforces (BGZF, Snappy).
+      * ``max_block_bytes``: an encoded block must stay under it (BGZF).
+
+    The block rules the writer (``parallel/compress.py``) applies to every
+    block, as the reference's ``FormatSpec`` owns its format's encoding:
+    :meth:`encoder`, :meth:`stored_len`, :meth:`stored_block`,
+    :meth:`host_check` and :meth:`oracle`. A :class:`BlockFormatSpec`'s
+    blocks close themselves: a stream of them needs no empty closing block.
     """
 
     name: str = "abstract"
     check_cls: type[_check.Check] = _check.PassThroughCheck
-    codec: str = "deflate"
-    kernel_mode: str = "stream"
     default_bufsize: int = BUFSIZE
-    needs_dict: bool = False
-    # uncompressed block-size cap enforced by the writer (BGZF only)
     max_input_block: int | None = None
+    max_block_bytes: int | None = None
 
     def create_check(self) -> _check.Check:
         return self.check_cls()
@@ -67,6 +65,35 @@ class FormatSpec:
     def trailer_bytes(self) -> bytes:
         """Static bytes appended after the last block (BGZF EOF marker)."""
         return b""
+
+    def encoder(self, block_size: int, level: int, use_dict: bool):
+        """``(encode, dict_size)``: the batched device encoder of blocks of
+        ``block_size`` bytes (``encode(data_u8, lengths, is_final[, halo,
+        dict_lens]) -> dict`` with ``out_len``, ``check`` and ``flat``) and
+        the bytes of the previous block each block takes as its halo (0:
+        none)."""
+        raise NotImplementedError
+
+    def stored_len(self, ln: int) -> int:
+        """Length of :meth:`stored_block` of ``ln`` bytes."""
+        raise NotImplementedError
+
+    def stored_block(self, raw: bytes, final: bool, level: int, chk: int) -> bytes:
+        """``raw`` encoded on the host without compression (``chk``: the
+        device's check of ``raw``)."""
+        raise NotImplementedError
+
+    def host_check(self, raw: bytes, chk: int) -> int:
+        """The check of a block the host re-encoded, for the stream check."""
+        c = self.check_cls()
+        c.update(raw)
+        return c.sum()
+
+    def oracle(self, seen: bytes = b""):
+        """A fresh ``oracle(blob, raw) -> bool``: whether each encoded block,
+        handed over in stream order, decodes to its input, after the
+        encoded bytes ``seen`` (which only a stream's blocks depend on)."""
+        raise NotImplementedError
 
 
 class BlockFormatSpec(FormatSpec):

@@ -8,21 +8,28 @@ Byte-level framing matches the reference exactly:
     u32 BLEN = total member size)
   * Bgzf member framing — src/bgzf.rs:272-310 (18-byte header, 'BC' SID,
     u16 BSIZE = total member size - 1, 65280-byte input cap, EOF marker)
+
+A member's header is written by :meth:`_Member.member_header` and read by
+:meth:`_Member.get_block_size`; the device framing
+(``ops/deflate_kernel.py``) takes its template and size field from there.
 """
 
 from __future__ import annotations
 
-import struct
+import zlib
 
 from gzp_tpu_torch import check as _check
 from gzp_tpu_torch.constants import (
     BGZF_BLOCK_SIZE,
     BGZF_EOF,
     BGZF_HEADER_SIZE,
+    DICT_SIZE,
+    MAX_BGZF_BLOCK_SIZE,
     MGZIP_HEADER_SIZE,
 )
 from gzp_tpu_torch.errors import InvalidHeaderError
 from gzp_tpu_torch.formats.base import BlockFormatSpec, FormatSpec
+from gzp_tpu_torch.ops import host_codec
 from gzp_tpu_torch.utils.serialize import put_be, put_le
 
 
@@ -36,12 +43,48 @@ def _gzip_xfl(level: int) -> int:
     return 0
 
 
-class _Gzip(FormatSpec):
+class _Deflate(FormatSpec):
+    """A format the deflate encoder writes; ``kernel_mode`` is its framing
+    (``DeflateEncodeConfig.mode``): ``'stream'`` (chunks of one deflate
+    stream joined with sync flushes) or ``'mgzip'``/``'bgzf'`` (a member
+    per block)."""
+
+    kernel_mode = "stream"
+
+    def encoder(self, block_size: int, level: int, use_dict: bool):
+        # imported here: the kernel module reads the member header from this one
+        from gzp_tpu_torch.ops.deflate_kernel import DeflateEncodeConfig, get_encoder
+
+        name = self.check_cls.name
+        # stream blocks carry the previous block's last 32 KiB as their
+        # dictionary (reference: cfg!(feature = "any_zlib"), src/deflate.rs:79-82)
+        dict_size = DICT_SIZE if use_dict and self.kernel_mode == "stream" else 0
+        cfg = DeflateEncodeConfig.for_level(
+            block_len=block_size, mode=self.kernel_mode,
+            checksum=name if name in ("crc32", "adler32") else "none",
+            level=level, dict_size=dict_size,
+        )
+        return get_encoder(cfg), dict_size
+
+
+class _Stream(_Deflate):
+    """Gzip, Zlib, raw Deflate: each block a chunk of one deflate stream."""
+
+    def stored_len(self, ln: int) -> int:
+        return host_codec.stored_size(ln)
+
+    def stored_block(self, raw: bytes, final: bool, level: int, chk: int) -> bytes:
+        return host_codec.stored_deflate(raw, final)
+
+    def oracle(self, seen: bytes = b""):
+        inflate = zlib.decompressobj(-15)  # the whole stream, incrementally
+        inflate.decompress(seen)
+        return lambda blob, raw: inflate.decompress(blob) == raw
+
+
+class _Gzip(_Stream):
     name = "gzip"
     check_cls = _check.Crc32
-    codec = "deflate"
-    kernel_mode = "stream"
-    needs_dict = True  # reference: cfg!(feature = "any_zlib")
 
     def header(self, compression_level: int) -> bytes:
         return bytes(
@@ -52,12 +95,9 @@ class _Gzip(FormatSpec):
         return put_le(check.sum(), 4) + put_le(check.amount(), 4)
 
 
-class _Zlib(FormatSpec):
+class _Zlib(_Stream):
     name = "zlib"
     check_cls = _check.Adler32
-    codec = "deflate"
-    kernel_mode = "stream"
-    needs_dict = True
 
     def header(self, compression_level: int) -> bytes:
         level = compression_level
@@ -77,58 +117,75 @@ class _Zlib(FormatSpec):
         return put_be(check.sum(), 4)
 
 
-class _RawDeflate(FormatSpec):
+class _RawDeflate(_Stream):
     name = "raw_deflate"
     check_cls = _check.PassThroughCheck
-    codec = "deflate"
-    kernel_mode = "stream"
-    needs_dict = True
 
 
-class _Mgzip(BlockFormatSpec):
-    name = "mgzip"
+class _Member(_Deflate, BlockFormatSpec):
+    """A gzip member per block. Its extra field, subfield ``sid``, holds
+    the member's total length less ``size_bias`` in ``size_width`` bytes,
+    little-endian, at byte ``SIZE_OFFSET`` of the header."""
+
     check_cls = _check.PassThroughCheck
     block_check_cls = _check.Crc32
-    codec = "deflate"
+    SIZE_OFFSET = 16
+    sid: bytes
+    size_width: int
+    size_bias: int
+
+    def member_header(self, level: int, member_len: int | None = None) -> bytes:
+        """The header of a member of ``member_len`` bytes (header, payload
+        and footer); with none, the size field is zero (the device's
+        template, whose size field the encoder writes)."""
+        size = 0 if member_len is None else member_len - self.size_bias
+        return (bytes([31, 139, 8, 4, 0, 0, 0, 0, _gzip_xfl(level), 255, 4 + self.size_width, 0])
+                + self.sid + put_le(self.size_width, 2) + put_le(size, self.size_width))
+
+    def check_header(self, header: bytes) -> None:
+        if len(header) < self.header_size:
+            raise InvalidHeaderError("Header truncated")
+        if header[0] != 31 or header[1] != 139:
+            raise InvalidHeaderError("Bad gzip magic")
+        if header[3] & 4 != 4:
+            raise InvalidHeaderError("Extra field flag not set")
+        if header[12:14] != self.sid:
+            raise InvalidHeaderError("Bad SID")
+
+    def get_block_size(self, header: bytes) -> int:
+        field = header[self.SIZE_OFFSET: self.SIZE_OFFSET + self.size_width]
+        return int.from_bytes(field, "little") + self.size_bias
+
+    def stored_len(self, ln: int) -> int:
+        return self.header_size + host_codec.stored_size(ln) + 8
+
+    def stored_block(self, raw: bytes, final: bool, level: int, chk: int) -> bytes:
+        payload = host_codec.stored_deflate(raw, final=True)
+        return (self.member_header(level, self.header_size + len(payload) + 8) + payload
+                + put_le(zlib.crc32(raw), 4) + put_le(len(raw) & 0xFFFFFFFF, 4))
+
+    def oracle(self, seen: bytes = b""):
+        def ok(blob: bytes, raw: bytes) -> bool:
+            d = zlib.decompressobj(-15)
+            return d.decompress(blob[self.header_size: len(blob) - 8]) + d.flush() == raw
+        return ok
+
+
+class _Mgzip(_Member):
+    name = "mgzip"
     kernel_mode = "mgzip"
     header_size = MGZIP_HEADER_SIZE
-
-    def check_header(self, header: bytes) -> None:
-        if len(header) < self.header_size:
-            raise InvalidHeaderError("Header truncated")
-        if header[0] != 31 or header[1] != 139:
-            raise InvalidHeaderError("Bad gzip magic")
-        if header[3] & 4 != 4:
-            raise InvalidHeaderError("Extra field flag not set")
-        if header[12:14] != b"IG":
-            raise InvalidHeaderError("Bad SID")
-
-    def get_block_size(self, header: bytes) -> int:
-        return struct.unpack("<I", header[16:20])[0]
+    sid, size_width, size_bias = b"IG", 4, 0
 
 
-class _Bgzf(BlockFormatSpec):
+class _Bgzf(_Member):
     name = "bgzf"
-    check_cls = _check.PassThroughCheck
-    block_check_cls = _check.Crc32
-    codec = "deflate"
     kernel_mode = "bgzf"
     header_size = BGZF_HEADER_SIZE
+    sid, size_width, size_bias = b"BC", 2, 1
     default_bufsize = BGZF_BLOCK_SIZE  # reference src/deflate.rs:583
     max_input_block = BGZF_BLOCK_SIZE
-
-    def check_header(self, header: bytes) -> None:
-        if len(header) < self.header_size:
-            raise InvalidHeaderError("Header truncated")
-        if header[0] != 31 or header[1] != 139:
-            raise InvalidHeaderError("Bad gzip magic")
-        if header[3] & 4 != 4:
-            raise InvalidHeaderError("Extra field flag not set")
-        if header[12:14] != b"BC":
-            raise InvalidHeaderError("Bad SID")
-
-    def get_block_size(self, header: bytes) -> int:
-        return struct.unpack("<H", header[16:18])[0] + 1
+    max_block_bytes = MAX_BGZF_BLOCK_SIZE  # reference src/bgzf.rs:218-223
 
     def trailer_bytes(self) -> bytes:
         return BGZF_EOF

@@ -20,22 +20,42 @@ import struct
 from typing import BinaryIO
 
 from gzp_tpu_torch import check as _check
-from gzp_tpu_torch.constants import BUFSIZE, SNAPPY_MAX_CHUNK
+from gzp_tpu_torch.constants import BUFSIZE, SNAPPY_MAX_CHUNK, SNAPPY_STREAM_IDENTIFIER
 from gzp_tpu_torch.errors import DecompressError, InvalidCheckError, InvalidHeaderError
 from gzp_tpu_torch.formats.base import FormatSpec
 from gzp_tpu_torch.utils.io import read_exact as _read_exact_io
+from gzp_tpu_torch.utils.serialize import put_le
+from gzp_tpu_torch.utils.snappy_ref import decode_frames
 
 
 class _Snap(FormatSpec):
     name = "snappy"
     check_cls = _check.PassThroughCheck
-    codec = "snappy"
-    kernel_mode = "snappy"
     default_bufsize = BUFSIZE
-    needs_dict = False
     # one frame chunk per block lane: cap blocks at the 65536-byte chunk
     # size (the writer clamps larger requested buffer sizes)
     max_input_block = SNAPPY_MAX_CHUNK
+
+    def encoder(self, block_size: int, level: int, use_dict: bool):
+        from gzp_tpu_torch.ops.snappy_kernel import SnappyEncodeConfig, get_snappy_encoder
+
+        return get_snappy_encoder(SnappyEncodeConfig(block_len=block_size)), 0
+
+    def stored_len(self, ln: int) -> int:
+        return len(SNAPPY_STREAM_IDENTIFIER) + 8 + ln
+
+    def stored_block(self, raw: bytes, final: bool, level: int, chk: int) -> bytes:
+        """A frame of one uncompressed chunk; its CRC is ``chk``, the
+        device's masked CRC32C, since the checksum reads the input, not the
+        encoding."""
+        return (SNAPPY_STREAM_IDENTIFIER + b"\x01" + put_le(len(raw) + 4, 3) + put_le(chk, 4)
+                + raw)
+
+    def host_check(self, raw: bytes, chk: int) -> int:
+        return chk  # the frame carries it (stored_block)
+
+    def oracle(self, seen: bytes = b""):
+        return lambda blob, raw: decode_frames(blob) == raw
 
 
 Snap = _Snap()

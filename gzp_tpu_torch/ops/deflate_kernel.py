@@ -37,7 +37,6 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 
 from gzp_tpu_torch.constants import (
@@ -47,6 +46,7 @@ from gzp_tpu_torch.constants import (
     MGZIP_HEADER_SIZE,
     MIN_MATCH,
 )
+from gzp_tpu_torch.formats import ALL_FORMATS
 from gzp_tpu_torch.ops import huffman, lz
 from gzp_tpu_torch.ops.checksum import adler32_device, crc32_device
 from gzp_tpu_torch.ops.lz_cuda import best_matches_cuda, best_matches_suffix_cuda
@@ -55,29 +55,6 @@ from gzp_tpu_torch.runtime.telemetry import span
 
 I64 = torch.int64
 M32 = 0xFFFFFFFF
-
-
-def _member_header_template(mode: str, level: int) -> np.ndarray:
-    """Constant member header bytes (size field zeroed) for mgzip/bgzf.
-
-    Byte layouts per reference src/mgzip.rs:244-278 and src/bgzf.rs:272-303.
-    """
-    if level >= 9:
-        xfl = 2
-    elif level <= 1:
-        xfl = 4
-    else:
-        xfl = 0
-    base = [31, 139, 8, 4, 0, 0, 0, 0, xfl, 255]
-    if mode == "mgzip":
-        hdr = base + [8, 0, ord("I"), ord("G"), 4, 0, 0, 0, 0, 0]  # XLEN=8, SID 'IG', SLEN=4, BLEN u32
-        assert len(hdr) == MGZIP_HEADER_SIZE
-    elif mode == "bgzf":
-        hdr = base + [6, 0, ord("B"), ord("C"), 2, 0, 0, 0]  # XLEN=6, SID 'BC', SLEN=2, BSIZE u16
-        assert len(hdr) == BGZF_HEADER_SIZE
-    else:
-        raise ValueError(mode)
-    return np.array(hdr, dtype=np.uint8)
 
 
 @dataclass(frozen=True)
@@ -361,13 +338,13 @@ def _sync_flush_trailer(words, total_bits, final):
 
 
 def emit_stage(cfg: DeflateEncodeConfig, data_u8, ext, lengths, is_final, marked, l,
-               match_dist, compact: bool = False):
+               match_dist):
     """Stages 3-5: entries, packing, the stream trailer or member framing,
     and the checksum. Returns dict ``out`` [B, out_bytes] uint8 (a framed
     member, or a bare deflate chunk in stream mode), ``out_len`` [B] int32,
     ``check`` [B] int64 (a member's CRC32; in stream mode the block's
-    ``cfg.checksum``: crc32, adler32, or zeros for 'none'); with
-    ``compact=True`` also ``flat`` (:func:`compact_outputs`)."""
+    ``cfg.checksum``: crc32, adler32, or zeros for 'none') and ``flat``
+    (:func:`compact_outputs`)."""
     b, n = data_u8.shape
     if n != cfg.block_len:
         raise ValueError(f"block width {n} != config block_len {cfg.block_len}")
@@ -378,8 +355,7 @@ def emit_stage(cfg: DeflateEncodeConfig, data_u8, ext, lengths, is_final, marked
                                                        cfg.out_words)
     with span("gzp.encode.finish"):
         res = _finish_stage(cfg, data_u8, lengths, is_final, words, total_bits)
-        if compact:
-            res["flat"] = compact_outputs(res["out"], res["out_len"])
+        res["flat"] = compact_outputs(res["out"], res["out_len"])
     return res
 
 
@@ -404,11 +380,13 @@ def _finish_stage(cfg: DeflateEncodeConfig, data_u8, lengths, is_final, words, t
             chk = torch.zeros((b,), dtype=I64, device=data_u8.device)
         return {"out": by, "out_len": deflate_bytes.to(torch.int32), "check": chk}
 
-    by[:, :hl] = torch.as_tensor(_member_header_template(cfg.mode, cfg.level), device=by.device)
-    if cfg.mode == "mgzip":
-        by[:, 16:20] = _le_bytes(deflate_bytes + MGZIP_HEADER_SIZE + 8, 4)
-    else:  # bgzf: BSIZE u16 = total member size - 1
-        by[:, 16:18] = _le_bytes(deflate_bytes + BGZF_HEADER_SIZE + 8 - 1, 2)
+    fmt = ALL_FORMATS[cfg.mode]  # the header's layout is the format's
+    by[:, :hl] = torch.tensor(list(fmt.member_header(cfg.level)), dtype=torch.uint8,
+                              device=by.device)
+    size = deflate_bytes + hl + 8  # the member's length
+    if fmt.size_bias:
+        size = size - fmt.size_bias
+    by[:, fmt.SIZE_OFFSET: fmt.SIZE_OFFSET + fmt.size_width] = _le_bytes(size, fmt.size_width)
     # footer: crc32 (of the uncompressed block) + ISIZE, little-endian
     mcrc = crc32_device(data_u8, lengths)
     foot = torch.cat([_le_bytes(mcrc, 4), _le_bytes(lengths, 4)], dim=1)
@@ -438,11 +416,10 @@ def compact_outputs(out: torch.Tensor, out_len: torch.Tensor) -> torch.Tensor:
     return flat[: b * m]
 
 
-def get_encoder(cfg: DeflateEncodeConfig, compact: bool = False):
+def get_encoder(cfg: DeflateEncodeConfig):
     """Batched encoder for a config: ``encode(data_u8 [B, N] uint8, lengths
     [B] int32, is_final [B] bool, halo=None, dict_lens=None) -> dict`` (see
-    :func:`emit_stage`; with ``compact=True`` also ``flat``, see
-    :func:`compact_outputs`). With ``cfg.dict_size`` = D > 0, ``halo`` [B, D]
+    :func:`emit_stage`). With ``cfg.dict_size`` = D > 0, ``halo`` [B, D]
     uint8 holds each block's preset dictionary right-aligned (the previous
     block's trailing bytes) and ``dict_lens`` [B] its valid bytes; match
     distances may reach into it, the 32 KiB cross-block dictionary carry
@@ -457,6 +434,6 @@ def get_encoder(cfg: DeflateEncodeConfig, compact: bool = False):
             ext, match_len, match_dist = match_stage(cfg, data_u8, lengths, halo, dict_lens)
         with span("gzp.encode.parse"):
             marked, l = parse_stage(cfg, match_len, lengths)
-        return emit_stage(cfg, data_u8, ext, lengths, is_final, marked, l, match_dist, compact)
+        return emit_stage(cfg, data_u8, ext, lengths, is_final, marked, l, match_dist)
 
     return encode

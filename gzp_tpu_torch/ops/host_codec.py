@@ -1,19 +1,15 @@
-"""Host-side byte builders for rare fallback paths.
+"""Host-side DEFLATE stored blocks for rare fallback paths.
 
-The device encoder always produces a fixed-Huffman (or later dynamic)
-encoding; for incompressible blocks a DEFLATE *stored* encoding is smaller
-(5 bytes overhead per 65535 instead of ~12.5% expansion). The host
-pipeline swaps in these stored encodings when they win — the same
-stored/fixed/dynamic choice zlib makes per block, applied at block
-granularity. Also used to honor BGZF's hard 65536-byte member cap
-(reference src/bgzf.rs:218-223).
+The device encoder always produces a fixed- or dynamic-Huffman encoding;
+for incompressible blocks a DEFLATE *stored* encoding is smaller (5 bytes
+overhead per 65535 instead of ~12.5% expansion). The host pipeline swaps
+in these stored encodings when they win — the same stored/fixed/dynamic
+choice zlib makes per block, applied at block granularity. The formats
+(``formats/``) frame them: a stream's chunk, or a member's payload.
 """
 
 from __future__ import annotations
 
-import zlib
-
-from gzp_tpu_torch.constants import BGZF_HEADER_SIZE, MGZIP_HEADER_SIZE
 from gzp_tpu_torch.utils.serialize import put_le
 
 _STORED_MAX = 65535
@@ -49,28 +45,3 @@ def stored_size(n: int) -> int:
         return 5
     blocks = (n + _STORED_MAX - 1) // _STORED_MAX
     return n + 5 * blocks
-
-
-def _member_header(mode: str, level: int, deflate_len: int) -> bytes:
-    if level >= 9:
-        xfl = 2
-    elif level <= 1:
-        xfl = 4
-    else:
-        xfl = 0
-    base = bytes([31, 139, 8, 4, 0, 0, 0, 0, xfl, 255])
-    if mode == "mgzip":
-        blen = deflate_len + MGZIP_HEADER_SIZE + 8
-        return base + bytes([8, 0, ord("I"), ord("G"), 4, 0]) + put_le(blen, 4)
-    if mode == "bgzf":
-        bsize = deflate_len + BGZF_HEADER_SIZE + 8 - 1
-        return base + bytes([6, 0, ord("B"), ord("C"), 2, 0]) + put_le(bsize, 2)
-    raise ValueError(mode)
-
-
-def stored_member(data: bytes, mode: str, level: int) -> bytes:
-    """Complete mgzip/bgzf member with a stored deflate payload."""
-    payload = stored_deflate(data, final=True)
-    hdr = _member_header(mode, level, len(payload))
-    footer = put_le(zlib.crc32(data), 4) + put_le(len(data) & 0xFFFFFFFF, 4)
-    return hdr + payload + footer

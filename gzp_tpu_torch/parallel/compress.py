@@ -37,19 +37,12 @@ from __future__ import annotations
 import collections
 import logging
 import threading
-import zlib
 from typing import BinaryIO
 
 import numpy as np
 import torch
 
-from gzp_tpu_torch.constants import (
-    DEFAULT_COMPRESSION_LEVEL,
-    DICT_SIZE,
-    MAX_BGZF_BLOCK_SIZE,
-    SNAPPY_STREAM_IDENTIFIER,
-    clamp_compression_level,
-)
+from gzp_tpu_torch.constants import DEFAULT_COMPRESSION_LEVEL, DICT_SIZE, clamp_compression_level
 from gzp_tpu_torch.errors import (
     BlockSizeExceededError,
     BufferSizeError,
@@ -57,13 +50,9 @@ from gzp_tpu_torch.errors import (
     NumThreadsError,
     WriterClosedError,
 )
-from gzp_tpu_torch.formats.base import FormatSpec
-from gzp_tpu_torch.ops import host_codec
-from gzp_tpu_torch.ops.deflate_kernel import DeflateEncodeConfig, get_encoder
-from gzp_tpu_torch.ops.snappy_kernel import SnappyEncodeConfig, get_snappy_encoder
+from gzp_tpu_torch.formats.base import BlockFormatSpec, FormatSpec
+from gzp_tpu_torch.parallel.mesh import MeshEncoder
 from gzp_tpu_torch.runtime.telemetry import recording, span
-from gzp_tpu_torch.utils.serialize import put_le
-from gzp_tpu_torch.utils.snappy_ref import decode_frames
 
 DEFAULT_NUM_THREADS = 16
 DEFAULT_QUEUE_DEPTH = 3
@@ -81,60 +70,39 @@ def reset_stored_stats() -> None:
         stored_stats.update(blocks=0, stored=0)
 
 
-def resolve_device(device: str | torch.device | None) -> torch.device:
-    """``None`` -> ``cuda:0``. A CUDA device with no CUDA available raises:
-    the CPU is used only when the caller asks for it."""
-    dev = torch.device("cuda", 0) if device is None else torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device available; pass device='cpu' to compress on the CPU")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
+def make_halo(arr: np.ndarray, lengths: np.ndarray, carry: bytes, dict_size: int):
+    """Per-block preset dictionaries of ``dict_size`` bytes: row i gets the
+    trailing bytes of row i-1 (right-aligned); row 0 gets ``carry``, the
+    tail of the previous batch. Returns (halo [B, D] u8, dict_lens [B]
+    i32), or (None, None) with no dictionary."""
+    d = dict_size
+    if not d:
+        return None, None
+    b = arr.shape[0]
+    halo = np.zeros((b, d), dtype=np.uint8)
+    dict_lens = np.zeros(b, dtype=np.int32)
+    if carry:
+        cl = min(len(carry), d)
+        halo[0, d - cl:] = np.frombuffer(carry[-cl:], np.uint8)
+        dict_lens[0] = cl
+    # row i gets arr[i-1, pl-cl : pl] right-aligned
+    for i, pl in enumerate(lengths[:-1].tolist(), 1):
+        cl = min(pl, d)
+        halo[i, d - cl:] = arr[i - 1, pl - cl: pl]
+        dict_lens[i] = cl
+    return halo, dict_lens
 
 
-def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """``arr`` on ``device``; to a CUDA device from pinned memory, so the
-    copy is asynchronous."""
-    t = torch.from_numpy(arr)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
-
-
-class MeshEncoder:
-    """``encoder`` run on each device of ``devices`` over its contiguous
-    share of the batch (gzp_tpu shards the batch axis over its mesh,
-    ``gzp_tpu/parallel/compress.py:177-188``).
-
-    ``MeshEncoder(encoder, devices)(*host_arrays)`` takes the host arrays
-    of one batch (each with the batch as its first axis, whose length
-    must be a multiple of the number of devices), copies device ``k``'s
-    rows ``[k * B / n, (k + 1) * B / n)`` to it with :func:`to_device`,
-    encodes them there, and returns one result dict per device, in device
-    order. Outputs stay on their device until the host fetches them; there
-    are no copies between devices. A device may appear more than once.
-    """
-
-    def __init__(self, encoder, devices):
-        self.encoder = encoder
-        self.devices = [resolve_device(d) for d in devices]
-        if not self.devices:
-            raise ValueError("a mesh needs at least one device")
-
-    def __len__(self) -> int:
-        return len(self.devices)
-
-    def __call__(self, *arrays: np.ndarray) -> list[dict]:
-        b, n = len(arrays[0]), len(self.devices)
-        if b % n:
-            raise ValueError(f"a batch of {b} does not split over {n} devices")
-        per = b // n
-        return [
-            self.encoder(*(to_device(a[k * per: (k + 1) * per], dev) for a in arrays))
-            for k, dev in enumerate(self.devices)
-        ]
+def update_carry(arr: np.ndarray, lengths: np.ndarray, carry: bytes, dict_size: int,
+                 count: int) -> bytes:
+    """The carry after a batch of ``count`` real rows: the last ``dict_size``
+    bytes of its last row (``carry`` itself with no dictionary, no row or
+    an empty last row)."""
+    if not dict_size or count == 0:
+        return carry
+    pl = int(lengths[count - 1])
+    cl = min(pl, dict_size)
+    return arr[count - 1, pl - cl: pl].tobytes() if cl else carry
 
 
 class ParCompress:
@@ -202,7 +170,7 @@ class ParCompress:
         self.queue_depth = queue_depth
         self._verify = verify
         self.verify_stats = {"checked": 0, "repaired": 0}
-        self._verify_stream = None  # incremental inflater of the stream-mode oracle
+        self._oracle = format_spec.oracle() if verify else None
         self._emit_footer = emit_footer
         self._final_on_finish = final_on_finish
         self._buffer = bytearray()
@@ -216,27 +184,12 @@ class ParCompress:
         self._wrote_final_block = False
         self._emitted_any = False
 
-        if format_spec.codec == "deflate":
-            checksum = {"crc32": "crc32", "adler32": "adler32"}.get(
-                format_spec.check_cls().name, "none")
-            stream = format_spec.kernel_mode == "stream"
-            dict_size = DICT_SIZE if use_dict and format_spec.needs_dict and stream else 0
-            self._cfg = DeflateEncodeConfig.for_level(
-                block_len=self.block_size, mode=format_spec.kernel_mode,
-                checksum=checksum, level=self.level, dict_size=dict_size,
-            )
-            self._encoder = get_encoder(self._cfg, compact=True)
-        elif format_spec.codec == "snappy":
-            self._cfg = SnappyEncodeConfig(block_len=self.block_size)
-            self._encoder = get_snappy_encoder(self._cfg)
-        else:
-            raise ValueError(f"unknown codec {format_spec.codec}")
-
+        encoder, self._dict_size = format_spec.encoder(self.block_size, self.level, use_dict)
         if device is not None and mesh is not None:
             raise ValueError("pass a device or a mesh, not both")
         # one device is a mesh of one; the batch rounds up to a multiple of
         # the mesh (gzp_tpu/parallel/compress.py:187-188)
-        self._mesh = MeshEncoder(self._encoder, [device] if mesh is None else mesh)
+        self._mesh = MeshEncoder(encoder, [device] if mesh is None else mesh)
         self.device = self._mesh.devices[0] if mesh is None else None
         self.batch = -(-self.batch // len(self._mesh)) * len(self._mesh)
 
@@ -328,40 +281,6 @@ class ParCompress:
             self.writer.write(hdr)
         self._header_written = True
 
-    @property
-    def _member(self) -> bool:
-        return self.format.kernel_mode in ("mgzip", "bgzf")
-
-    def _make_halo(self, arr: np.ndarray, lengths: np.ndarray):
-        """Per-block preset dictionaries: row i gets the trailing bytes of
-        row i-1 (right-aligned); row 0 gets the carry from the previous
-        batch. Returns (halo [B, D] u8, dict_lens [B] i32) or (None, None)."""
-        d = getattr(self._cfg, "dict_size", 0)
-        if not d:
-            return None, None
-        b = arr.shape[0]
-        halo = np.zeros((b, d), dtype=np.uint8)
-        dict_lens = np.zeros(b, dtype=np.int32)
-        if self._carry:
-            cl = min(len(self._carry), d)
-            halo[0, d - cl:] = np.frombuffer(self._carry[-cl:], np.uint8)
-            dict_lens[0] = cl
-        # row i gets arr[i-1, pl-cl : pl] right-aligned
-        for i, pl in enumerate(lengths[:-1].tolist(), 1):
-            cl = min(pl, d)
-            halo[i, d - cl:] = arr[i - 1, pl - cl: pl]
-            dict_lens[i] = cl
-        return halo, dict_lens
-
-    def _update_carry(self, arr: np.ndarray, lengths: np.ndarray, count: int) -> None:
-        d = getattr(self._cfg, "dict_size", 0)
-        if not d or count == 0:
-            return
-        pl = int(lengths[count - 1])
-        cl = min(pl, d)
-        if cl:
-            self._carry = arr[count - 1, pl - cl: pl].tobytes()
-
     def _dispatch_tail(self, data: bytes, final: bool) -> None:
         """Dispatch remaining bytes, padding the batch; marks the last real
         block final when closing the stream. A final call with no data still
@@ -373,7 +292,8 @@ class ParCompress:
         n, b = self.block_size, self.batch
         if not data and (not final or self._wrote_final_block):
             return
-        if not data and self._member and (self._emitted_any or self._inflight):
+        if (not data and isinstance(self.format, BlockFormatSpec)
+                and (self._emitted_any or self._inflight)):
             return
         while True:
             seq, self._seq = self._seq, self._seq + 1
@@ -400,8 +320,9 @@ class ParCompress:
         to its depth."""
         # the halo spans the whole batch before a mesh splits it: the first
         # row of a device's share gets the last row of the share before
-        halo, dict_lens = self._make_halo(arr, lengths)
-        self._update_carry(arr, lengths, count or len(lengths))
+        halo, dict_lens = make_halo(arr, lengths, self._carry, self._dict_size)
+        self._carry = update_carry(arr, lengths, self._carry, self._dict_size,
+                                   count or len(lengths))
         args = [arr, lengths, finals] + ([halo, dict_lens] if halo is not None else [])
         try:
             res = self._mesh(*args)
@@ -451,9 +372,9 @@ class ParCompress:
             fin = bool(finals[i])
             if ln == 0 and not fin:
                 continue  # padding block
-            if ln == 0 and self._member and self._emitted_any:
-                # member formats need no closing block; only an entirely
-                # empty stream gets one empty member
+            if ln == 0 and isinstance(self.format, BlockFormatSpec) and self._emitted_any:
+                # members need no closing block; only an entirely empty
+                # stream gets one empty member
                 continue
             blob = get_blob(i)
             raw = arr[i, :ln].tobytes()
@@ -476,33 +397,14 @@ class ParCompress:
         if pieces:
             self.writer.write(b"".join(pieces))
 
-    @staticmethod
-    def _snappy_uncompressed(raw: bytes, chk: int) -> bytes:
-        """A frame of one uncompressed chunk (its CRC the device-computed
-        masked CRC32C: the checksum reads the input, not the encoding)."""
-        return (SNAPPY_STREAM_IDENTIFIER + b"\x01" + put_le(len(raw) + 4, 3) + put_le(chk, 4)
-                + raw)
-
     def _verify_or_repair(self, blob: bytes, raw: bytes, ln: int, final: bool, chk: int
                           ) -> tuple[bytes, int]:
-        """Oracle-decode ``blob``; on any mismatch re-emit the block
-        uncompressed (a stored deflate chunk or member, or an uncompressed
-        Snappy chunk) with a host-computed checksum. The stream-mode oracle
-        inflates the whole stream incrementally and starts anew on the
-        repaired bytes."""
-        mode = self.format.kernel_mode
+        """Oracle-decode ``blob`` (``FormatSpec.oracle``); on any mismatch
+        re-emit the block uncompressed (``FormatSpec.stored_block``) with the
+        host's check of it, and start a new oracle on the repaired bytes."""
         self.verify_stats["checked"] += 1
         try:
-            if mode == "stream":
-                if self._verify_stream is None:
-                    self._verify_stream = zlib.decompressobj(-15)
-                ok = self._verify_stream.decompress(blob) == raw
-            elif mode == "snappy":
-                ok = decode_frames(blob) == raw
-            else:
-                d = zlib.decompressobj(-15)
-                payload = blob[self._cfg.header_len: len(blob) - 8]
-                ok = d.decompress(payload) + d.flush() == raw
+            ok = self._oracle(blob, raw)
         except Exception:  # noqa: BLE001 - any decode error means repair
             ok = False
         if ok:
@@ -512,41 +414,21 @@ class ParCompress:
             "verify: device-encoded block failed oracle decode; "
             "re-emitting stored (totals: %r)", self.verify_stats,
         )
-        c = self.format.check_cls()
-        c.update(raw)
-        if mode == "stream":
-            blob = host_codec.stored_deflate(raw, final)
-            self._verify_stream = zlib.decompressobj(-15)
-            self._verify_stream.decompress(blob)
-        elif mode == "snappy":
-            return self._snappy_uncompressed(raw, chk), chk
-        else:
-            blob = host_codec.stored_member(raw, mode, self.level)
-        return blob, c.sum()
+        blob = self.format.stored_block(raw, final, self.level, chk)
+        self._oracle = self.format.oracle(blob)
+        return blob, self.format.host_check(raw, chk)
 
     def _maybe_fallback(self, blob: bytes, raw: bytes, ln: int, final: bool, chk: int
                         ) -> bytes:
-        """Swap in a stored encoding when smaller (the per-block
-        stored/compressed choice zlib makes); enforce the BGZF cap
-        (reference src/bgzf.rs:218-223). For Snappy, switch to an
-        uncompressed chunk when compression expanded the block."""
-        mode = self.format.kernel_mode
-        if mode == "snappy":
-            if ln and len(blob) > 10 + 4 + 4 + ln:
-                blob = self._snappy_uncompressed(raw, chk)
-            return blob
-        if mode == "stream":
-            if ln and len(blob) > host_codec.stored_size(ln):
-                stored = host_codec.stored_deflate(raw, final)
-                if len(stored) < len(blob):
-                    blob = stored
-            return blob
-        if ln and len(blob) > self._cfg.header_len + 8 + host_codec.stored_size(ln):
-            stored = host_codec.stored_member(raw, mode, self.level)
-            if len(stored) < len(blob):
-                blob = stored
-        if mode == "bgzf" and len(blob) >= MAX_BGZF_BLOCK_SIZE:
-            raise BlockSizeExceededError(len(blob), MAX_BGZF_BLOCK_SIZE)
+        """Swap in the uncompressed encoding when it is smaller (the
+        per-block stored/compressed choice zlib makes; ``stored_len`` is its
+        length); enforce the format's cap on a block (BGZF, reference
+        src/bgzf.rs:218-223)."""
+        if ln and len(blob) > self.format.stored_len(ln):
+            blob = self.format.stored_block(raw, final, self.level, chk)
+        cap = self.format.max_block_bytes
+        if cap is not None and len(blob) >= cap:
+            raise BlockSizeExceededError(len(blob), cap)
         return blob
 
 

@@ -33,7 +33,7 @@ from gzp_tpu_torch.errors import (
     NumThreadsError,
 )
 from gzp_tpu_torch.formats.base import BlockFormatSpec
-from gzp_tpu_torch.parallel.compress import resolve_device
+from gzp_tpu_torch.parallel.mesh import resolve_device
 from gzp_tpu_torch.runtime import get_native
 from gzp_tpu_torch.runtime.telemetry import span
 from gzp_tpu_torch.utils.io import read_exact

@@ -1,11 +1,11 @@
-"""Multi-device helpers: the devices of a mesh, and the dry run.
+"""Device placement: which device a writer or reader runs on, the split of
+a batch over a mesh of devices, and the dry run.
 
-The split itself is ``MeshEncoder`` in ``parallel/compress.py``
-(``ParCompress(mesh=...)``), counterpart of the ``mesh`` knob of
-``gzp_tpu/parallel/compress.py`` (:177-188): each of a mesh's ``n``
-devices encodes a contiguous ``B / n`` rows of every batch. Here a mesh is
-a sequence of torch devices. ``dryrun_multichip`` is the counterpart of
-the one in ``__graft_entry__.py``.
+:class:`MeshEncoder` (``ParCompress(mesh=...)``) is the counterpart of the
+``mesh`` knob of ``gzp_tpu/parallel/compress.py`` (:177-188): each of a
+mesh's ``n`` devices encodes a contiguous ``B / n`` rows of every batch.
+Here a mesh is a sequence of torch devices; one device is a mesh of one.
+``dryrun_multichip`` is the counterpart of the one in ``__graft_entry__.py``.
 
 A device may appear more than once: ``[cuda:0, cuda:0]`` runs the split
 and the ordered gather on one card.
@@ -20,7 +20,62 @@ import numpy as np
 import torch
 
 from gzp_tpu_torch.ops.deflate_kernel import DeflateEncodeConfig, get_encoder
-from gzp_tpu_torch.parallel.compress import MeshEncoder, resolve_device
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """``None`` -> ``cuda:0``. A CUDA device with no CUDA available raises:
+    the CPU is used only when the caller asks for it."""
+    dev = torch.device("cuda", 0) if device is None else torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available; pass device='cpu' to compress on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``arr`` on ``device``; to a CUDA device from pinned memory, so the
+    copy is asynchronous."""
+    t = torch.from_numpy(arr)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+class MeshEncoder:
+    """``encoder`` run on each device of ``devices`` over its contiguous
+    share of the batch (gzp_tpu shards the batch axis over its mesh,
+    ``gzp_tpu/parallel/compress.py:177-188``).
+
+    ``MeshEncoder(encoder, devices)(*host_arrays)`` takes the host arrays
+    of one batch (each with the batch as its first axis, whose length
+    must be a multiple of the number of devices), copies device ``k``'s
+    rows ``[k * B / n, (k + 1) * B / n)`` to it with :func:`to_device`,
+    encodes them there, and returns one result dict per device, in device
+    order. Outputs stay on their device until the host fetches them; there
+    are no copies between devices. A device may appear more than once.
+    """
+
+    def __init__(self, encoder, devices):
+        self.encoder = encoder
+        self.devices = [resolve_device(d) for d in devices]
+        if not self.devices:
+            raise ValueError("a mesh needs at least one device")
+
+    def __len__(self) -> int:
+        return len(self.devices)
+
+    def __call__(self, *arrays: np.ndarray) -> list[dict]:
+        b, n = len(arrays[0]), len(self.devices)
+        if b % n:
+            raise ValueError(f"a batch of {b} does not split over {n} devices")
+        per = b // n
+        return [
+            self.encoder(*(to_device(a[k * per: (k + 1) * per], dev) for a in arrays))
+            for k, dev in enumerate(self.devices)
+        ]
 
 
 def mesh_devices(n: int) -> list[torch.device]:

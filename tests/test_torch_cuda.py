@@ -366,7 +366,7 @@ def stream(stages):
 
 
 def _halo_start(kind, device):
-    """As the writer's ``_make_halo`` gives it ("carry": row 0 without a
+    """As the writer's ``make_halo`` gives it ("carry": row 0 without a
     carry, so halo_start = D; the other rows 0), or one value for all."""
     hs = torch.zeros((B,), dtype=torch.int32, device=device)
     hs[:] = D if kind == "base" else 1000 if kind == "1000" else 0

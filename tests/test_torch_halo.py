@@ -1,4 +1,4 @@
-"""``ParCompress._make_halo``, the stream's per-row preset dictionaries,
+"""``make_halo`` of ``parallel/compress.py``, the stream's per-row preset dictionaries,
 against an index-plane gather of the same bytes (the reference, below):
 block sizes at, just over, well over and four times the 32 KiB
 dictionary; predecessor lengths 0, 1, d-1, d, d+1 and a full row, mixed
@@ -8,13 +8,11 @@ A batch's one ragged row is its last real row, so whole streams never
 show a short predecessor's halo in their bytes: only this test holds it.
 """
 
-from types import SimpleNamespace
-
 import numpy as np
 import pytest
 
 from gzp_tpu_torch.constants import DICT_SIZE
-from gzp_tpu_torch.parallel.compress import ParCompress
+from gzp_tpu_torch.parallel.compress import make_halo
 
 D = DICT_SIZE
 
@@ -59,9 +57,7 @@ def test_make_halo_equals_index_gather(n, rows, carry):
     for i, ln in enumerate(lengths):
         arr[i, ln:] = 0  # a padded row is zero past its length, as dispatched
     carry_bytes = rng.integers(0, 256, CARRIES[carry], dtype=np.uint8).tobytes()
-    writer = SimpleNamespace(_cfg=SimpleNamespace(dict_size=D),
-                             _carry=carry_bytes[-D:] if carry_bytes else b"")
-    halo, dict_lens = ParCompress._make_halo(writer, arr, lengths)
+    halo, dict_lens = make_halo(arr, lengths, carry_bytes[-D:] if carry_bytes else b"", D)
     want_halo, want_lens = _halo_gather(arr, lengths, carry_bytes, D)
     assert halo.dtype == np.uint8 and halo.shape == (len(lengths), D)
     assert dict_lens.dtype == np.int32

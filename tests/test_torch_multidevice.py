@@ -1,5 +1,5 @@
 """The port's multi-device compression (``ZBuilder(...).mesh(devices)``,
-``MeshEncoder`` in ``gzp_tpu_torch/parallel/compress.py``) on meshes of ``"cpu"`` entries, held
+``MeshEncoder`` in ``gzp_tpu_torch/parallel/mesh.py``) on meshes of ``"cpu"`` entries, held
 byte for byte against the port's one-device stream and against gzp_tpu's
 stream on a mesh of the virtual CPU devices (``tests/conftest.py``).
 Analogs of ``tests/test_multidevice.py``. Tolerance: exact bytes.
@@ -17,8 +17,7 @@ import torch
 import gzp_tpu
 import gzp_tpu_torch
 from gzp_tpu_torch.constants import DICT_SIZE
-from gzp_tpu_torch.parallel.compress import MeshEncoder
-from gzp_tpu_torch.parallel.mesh import dryrun_multichip, mesh_devices
+from gzp_tpu_torch.parallel.mesh import MeshEncoder, dryrun_multichip, mesh_devices
 from gzp_tpu_torch.utils.snappy_ref import decode_frames
 
 DECODE = {

@@ -88,7 +88,7 @@ def test_stream_encoder_equals_reference(level, checksum, subblocks):
     rj = jdk.get_encoder(jcfg, compact=True)(*map(jnp.asarray, args))
     tcfg = tdk.config_from_reference(dataclasses.asdict(jcfg))
     assert (tcfg.mode, tcfg.dict_size, tcfg.subblocks) == ("stream", D, subblocks or 1)
-    rt = tdk.get_encoder(tcfg, compact=True)(*map(torch.from_numpy, args))
+    rt = tdk.get_encoder(tcfg)(*map(torch.from_numpy, args))
     for k in ("out_len", "check", "flat"):
         _eq(rj[k], rt[k])
     out, ol = rt["out"].numpy(), rt["out_len"].numpy()
