@@ -30,13 +30,16 @@ Each stage runs inside the span ``gzp.encode.<stage>``
 unless a profiler records.
 
 Tensors stay on the device the input is on. There is no compile step:
-:func:`get_encoder` returns a plain function.
+:func:`get_encoder` returns a plain function, which the writer replays as
+one CUDA graph a batch on a card (``ops/graphs.py``).
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from gzp_tpu_torch.constants import (
@@ -47,7 +50,7 @@ from gzp_tpu_torch.constants import (
     MIN_MATCH,
 )
 from gzp_tpu_torch.formats import ALL_FORMATS
-from gzp_tpu_torch.ops import huffman, lz
+from gzp_tpu_torch.ops import huffman, lz, tables
 from gzp_tpu_torch.ops.checksum import adler32_device, crc32_device
 from gzp_tpu_torch.ops.lz_cuda import best_matches_cuda, best_matches_suffix_cuda
 from gzp_tpu_torch.ops.pack_cuda import pack_entries_sortscan_cuda
@@ -262,12 +265,19 @@ def parse_stage(cfg: DeflateEncodeConfig, match_len: torch.Tensor, lengths: torc
     starts. With sub-blocks, no match starts on the last position before a
     sub-block boundary: its distance half (stashed at i+1) would land after
     the next sub-block's end-of-block symbol and header."""
-    base = cfg.dict_size
     if cfg.subblocks > 1:
-        ns = cfg.block_len // cfg.subblocks
         match_len = match_len.clone()
-        match_len[:, [base + (s + 1) * ns - 1 for s in range(cfg.subblocks - 1)]] = 0
-    return lz.parse_marks_scan(match_len, lengths, min_emit=MIN_MATCH, base=base)
+        match_len[:, subblock_last_positions(cfg)] = 0
+    return lz.parse_marks_scan(match_len, lengths, min_emit=MIN_MATCH, base=cfg.dict_size)
+
+
+def subblock_last_positions(cfg: DeflateEncodeConfig) -> slice:
+    """The positions (halo included) that end each sub-block but the last:
+    ``dict_size + (s + 1) * ns - 1`` for s < ``subblocks`` - 1, as a slice,
+    which indexes without an upload."""
+    ns = cfg.block_len // cfg.subblocks
+    base = cfg.dict_size
+    return slice(base + ns - 1, base + (cfg.subblocks - 1) * ns, ns)
 
 
 def block_entries(cfg: DeflateEncodeConfig, ext, marked, l, match_dist, is_final=None):
@@ -381,8 +391,8 @@ def _finish_stage(cfg: DeflateEncodeConfig, data_u8, lengths, is_final, words, t
         return {"out": by, "out_len": deflate_bytes.to(torch.int32), "check": chk}
 
     fmt = ALL_FORMATS[cfg.mode]  # the header's layout is the format's
-    by[:, :hl] = torch.tensor(list(fmt.member_header(cfg.level)), dtype=torch.uint8,
-                              device=by.device)
+    by[:, :hl] = tables.on_device(member_header_bytes, (cfg.mode, cfg.level), by.device,
+                                  torch.uint8)
     size = deflate_bytes + hl + 8  # the member's length
     if fmt.size_bias:
         size = size - fmt.size_bias
@@ -394,6 +404,12 @@ def _finish_stage(cfg: DeflateEncodeConfig, data_u8, lengths, is_final, words, t
     by.scatter_(1, foot_pos, foot)
     out_len = (hl + deflate_bytes + 8).to(torch.int32)
     return {"out": by, "out_len": out_len, "check": mcrc}
+
+
+def member_header_bytes(mode: str, level: int) -> np.ndarray:
+    """The member header of format ``mode`` at ``level``, its size field
+    zero (the encoder writes it), as uint8."""
+    return np.frombuffer(ALL_FORMATS[mode].member_header(level), np.uint8)
 
 
 def compact_outputs(out: torch.Tensor, out_len: torch.Tensor) -> torch.Tensor:
@@ -416,15 +432,17 @@ def compact_outputs(out: torch.Tensor, out_len: torch.Tensor) -> torch.Tensor:
     return flat[: b * m]
 
 
+@functools.cache
 def get_encoder(cfg: DeflateEncodeConfig):
-    """Batched encoder for a config: ``encode(data_u8 [B, N] uint8, lengths
-    [B] int32, is_final [B] bool, halo=None, dict_lens=None) -> dict`` (see
-    :func:`emit_stage`). With ``cfg.dict_size`` = D > 0, ``halo`` [B, D]
-    uint8 holds each block's preset dictionary right-aligned (the previous
-    block's trailing bytes) and ``dict_lens`` [B] its valid bytes; match
-    distances may reach into it, the 32 KiB cross-block dictionary carry
-    (reference src/par/compress.rs:417-423). ``is_final`` matters only in
-    stream mode. Runs on the device of its inputs."""
+    """Batched encoder for a config, one function per equal config (a key of
+    the CUDA graphs of ``ops/graphs.py``): ``encode(data_u8 [B, N] uint8,
+    lengths [B] int32, is_final [B] bool, halo=None, dict_lens=None) ->
+    dict`` (see :func:`emit_stage`). With ``cfg.dict_size`` = D > 0,
+    ``halo`` [B, D] uint8 holds each block's preset dictionary right-aligned
+    (the previous block's trailing bytes) and ``dict_lens`` [B] its valid
+    bytes; match distances may reach into it, the 32 KiB cross-block
+    dictionary carry (reference src/par/compress.rs:417-423). ``is_final``
+    matters only in stream mode. Runs on the device of its inputs."""
     if cfg.block_len % cfg.subblocks:
         raise ValueError(f"subblocks={cfg.subblocks} do not divide block_len={cfg.block_len}")
 

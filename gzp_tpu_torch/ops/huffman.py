@@ -30,6 +30,28 @@ CL_ORDER = np.array(
 _INF = 1 << 26  # weight padding (package sums stay below this)
 
 
+# the dynamic header's constant fields, as tables for ``tables.on_device``
+def cl_order() -> np.ndarray:
+    """CL symbols in the header's permuted order."""
+    return CL_ORDER
+
+
+def constant_cl_lens() -> np.ndarray:
+    """The CL code lengths of the constant 4-bit layout, in header order."""
+    return np.array([4 if s <= 15 else 0 for s in CL_ORDER], dtype=np.int64)
+
+
+def header_counts() -> np.ndarray:
+    """HLIT, HDIST and HCLEN: every table is sent whole."""
+    return np.array([NLIT - 257, NDIST - 1, 19 - 4], dtype=np.int64)
+
+
+def header_widths() -> np.ndarray:
+    """Bit widths of the header's first 23 fields: block header, HLIT,
+    HDIST, HCLEN, and the 19 CL code lengths."""
+    return np.array([3, 5, 5, 4] + [3] * 19, dtype=np.int64)
+
+
 def _histogram(sym: torch.Tensor, weight: torch.Tensor, nsym: int) -> torch.Tensor:
     """Per-row counts of ``sym`` where ``weight`` (0/1) is set."""
     out = torch.zeros((sym.shape[0], nsym), dtype=I64, device=sym.device)
@@ -215,14 +237,14 @@ def dynamic_header_fields_rle(lit_lens, dist_lens, final, use_dyn):
     lens_bits = torch.where(use_rle, rle_bits, _rev4(torch.clamp(all_lens, 0, 15)))
     lens_n = torch.where(use_rle, rle_n, 4)
 
-    order = torch.as_tensor(CL_ORDER, device=dev)
-    const_cl = torch.as_tensor([4 if s <= 15 else 0 for s in CL_ORDER], device=dev)
+    order = tables.on_device(cl_order, (), dev, I64)
+    const_cl = tables.on_device(constant_cl_lens, (), dev, I64)
     cl_field = torch.where(use_rle, cl_lens[:, order], const_cl[None, :])
 
     hdr3 = torch.where(use_dyn, 4, 2) | final.to(I64)  # BFINAL | BTYPE
-    consts = torch.as_tensor([NLIT - 257, NDIST - 1, 19 - 4], device=dev)
+    consts = tables.on_device(header_counts, (), dev, I64)
     head_bits = torch.cat([hdr3[:, None], consts[None, :].expand(b, 3), cl_field], dim=1)
-    head_n = torch.as_tensor([3, 5, 5, 4] + [3] * 19, device=dev)[None, :].expand(b, -1)
+    head_n = tables.on_device(header_widths, (), dev, I64)[None, :].expand(b, -1)
     bits_all = torch.cat([head_bits, lens_bits], dim=1)
     n_all = torch.cat([head_n, lens_n], dim=1)
     keep = use_dyn[:, None] | (torch.arange(bits_all.shape[1], device=dev) == 0)[None, :]

@@ -33,10 +33,11 @@ from __future__ import annotations
 import functools
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from gzp_tpu_torch.constants import SNAPPY_MAX_CHUNK, SNAPPY_MIN_MATCH, SNAPPY_STREAM_IDENTIFIER
-from gzp_tpu_torch.ops import lz
+from gzp_tpu_torch.ops import lz, tables
 from gzp_tpu_torch.ops.checksum import crc32c_masked_device
 from gzp_tpu_torch.ops.deflate_kernel import _le_bytes, compact_outputs
 from gzp_tpu_torch.ops.lz_cuda import best_matches_cuda
@@ -102,6 +103,11 @@ def _carry_from_match_start(is_match, tok_start, vals):
 def _varint_len(ln: torch.Tensor) -> torch.Tensor:
     """Bytes of the varint preamble for uncompressed lengths <= 65536."""
     return torch.where(ln < 128, 1, torch.where(ln < 16384, 2, 3))
+
+
+def stream_identifier() -> np.ndarray:
+    """The 10-byte stream identifier chunk that opens every frame, as uint8."""
+    return np.frombuffer(SNAPPY_STREAM_IDENTIFIER, np.uint8)
 
 
 def snappy_entries(cfg: SnappyEncodeConfig, data_u8, lengths, match_len, match_dist):
@@ -194,8 +200,7 @@ def encode_snappy_blocks(cfg: SnappyEncodeConfig, data_u8, lengths, is_final):
         out = _le_bytes(words, 4).reshape(b, cfg.out_bytes)
 
         # ----- frame headers -----
-        out[:, :10] = torch.tensor(list(SNAPPY_STREAM_IDENTIFIER), dtype=torch.uint8,
-                                   device=dev)
+        out[:, :10] = tables.on_device(stream_identifier, (), dev, torch.uint8)
         out[:, 10] = 0  # chunk type 0x00: compressed data
         out[:, 11:14] = _le_bytes(4 + varint_len + elem_total, 3)
         crc = crc32c_masked_device(data_u8, lengths)
@@ -205,8 +210,10 @@ def encode_snappy_blocks(cfg: SnappyEncodeConfig, data_u8, lengths, is_final):
     return {"out": out, "out_len": out_len, "check": crc, "flat": flat}
 
 
+@functools.cache
 def get_snappy_encoder(cfg: SnappyEncodeConfig):
-    """Batched snappy encoder for a config: ``encode(data_u8 [B, N] uint8,
-    lengths [B] int32, is_final [B] bool) -> dict`` (see
+    """Batched snappy encoder for a config, one function per equal config (a
+    key of the CUDA graphs of ``ops/graphs.py``): ``encode(data_u8 [B, N]
+    uint8, lengths [B] int32, is_final [B] bool) -> dict`` (see
     :func:`encode_snappy_blocks`). Runs on the device of its inputs."""
     return functools.partial(encode_snappy_blocks, cfg)

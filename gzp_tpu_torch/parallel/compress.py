@@ -13,7 +13,9 @@ fed over bounded channels, and an ordered writer stitching results. Here:
   (:class:`MeshEncoder`);
 * PyTorch queues device work asynchronously, so up to ``queue_depth``
   batches are in flight while the host stitches finished ones in
-  submission order;
+  submission order; on a card each batch's encoder is one CUDA graph
+  replay (``ops/graphs.py``) and its results start for the host as soon
+  as it is queued (:func:`start_fetch`);
 * in stream mode (Gzip, Zlib, raw Deflate) every block carries the last
   32 KiB of the block before it as a halo its matches may reach into
   (reference src/par/compress.rs:417-423), across batches too;
@@ -91,6 +93,33 @@ def make_halo(arr: np.ndarray, lengths: np.ndarray, carry: bytes, dict_size: int
         halo[i, d - cl:] = arr[i - 1, pl - cl: pl]
         dict_lens[i] = cl
     return halo, dict_lens
+
+
+def start_fetch(res: dict):
+    """Start copying an encoded share's ``out_len``, ``check`` and ``flat`` to
+    the host; returns ``fetch()``, which waits for them and returns them as
+    numpy arrays. On a CUDA device they are copied into pinned memory at
+    once, on the stream of the share's work and ahead of any batch queued
+    after it, so a fetch waits for its own batch alone (a copy queued at
+    fetch time would wait for every batch queued before it, and the batches
+    in flight would not overlap the host's work). The whole ``flat`` is
+    copied: its used length is not known yet."""
+    keys = ("out_len", "check", "flat")
+    dev = res["flat"].device
+    if dev.type != "cuda":
+        return lambda: {k: res[k].numpy() for k in keys}
+    host = {}
+    for k in keys:
+        host[k] = torch.empty(res[k].shape, dtype=res[k].dtype, pin_memory=True)
+        host[k].copy_(res[k], non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(dev))
+
+    def fetch() -> dict:
+        done.synchronize()
+        return {k: v.numpy() for k, v in host.items()}
+
+    return fetch
 
 
 def update_carry(arr: np.ndarray, lengths: np.ndarray, carry: bytes, dict_size: int,
@@ -325,11 +354,11 @@ class ParCompress:
                                    count or len(lengths))
         args = [arr, lengths, finals] + ([halo, dict_lens] if halo is not None else [])
         try:
-            res = self._mesh(*args)
+            fetches = [start_fetch(res) for res in self._mesh(*args)]
         except Exception as e:  # launch failure
             self._error = e
             raise
-        self._inflight.append((seq, res, arr, lengths, finals, count or len(lengths)))
+        self._inflight.append((seq, fetches, arr, lengths, finals, count or len(lengths)))
 
     def _drain(self, depth: int) -> None:
         """Stitch the oldest batches until ``depth`` are in flight."""
@@ -337,14 +366,15 @@ class ParCompress:
             self._consume_one()
 
     def _consume_one(self) -> None:
-        seq, res, arr, lengths, finals, count = self._inflight.popleft()
+        seq, fetches, arr, lengths, finals, count = self._inflight.popleft()
         try:
             with span("gzp.compress.fetch", seq):
-                # fetch exactly sum(out_len) bytes of each device's share,
-                # not the padded rows; the shares end to end in device order
-                lens = [r["out_len"].cpu().numpy() for r in res]
-                chks = np.concatenate([r["check"].cpu().numpy() for r in res])
-                flats = [r["flat"][: int(n.sum())].cpu().numpy() for r, n in zip(res, lens)]
+                # sum(out_len) bytes of each device's share, not the padded
+                # rows; the shares end to end in device order
+                got = [fetch() for fetch in fetches]
+                lens = [g["out_len"] for g in got]
+                chks = np.concatenate([g["check"] for g in got])
+                flats = [g["flat"][: int(n.sum())] for g, n in zip(got, lens)]
             with span("gzp.compress.stitch", seq):
                 out_len = np.concatenate(lens)
                 flat = flats[0] if len(flats) == 1 else np.concatenate(flats)

@@ -19,6 +19,7 @@ from collections.abc import Sequence
 import numpy as np
 import torch
 
+from gzp_tpu_torch.ops import graphs
 from gzp_tpu_torch.ops.deflate_kernel import DeflateEncodeConfig, get_encoder
 
 
@@ -53,9 +54,10 @@ class MeshEncoder:
     of one batch (each with the batch as its first axis, whose length
     must be a multiple of the number of devices), copies device ``k``'s
     rows ``[k * B / n, (k + 1) * B / n)`` to it with :func:`to_device`,
-    encodes them there, and returns one result dict per device, in device
-    order. Outputs stay on their device until the host fetches them; there
-    are no copies between devices. A device may appear more than once.
+    encodes them there (``graphs.run``: one CUDA graph replay on a card),
+    and returns one result dict per device, in device order. Outputs stay
+    on their device until the host fetches them; there are no copies
+    between devices. A device may appear more than once.
     """
 
     def __init__(self, encoder, devices):
@@ -73,7 +75,7 @@ class MeshEncoder:
             raise ValueError(f"a batch of {b} does not split over {n} devices")
         per = b // n
         return [
-            self.encoder(*(to_device(a[k * per: (k + 1) * per], dev) for a in arrays))
+            graphs.run(self.encoder, *(to_device(a[k * per: (k + 1) * per], dev) for a in arrays))
             for k, dev in enumerate(self.devices)
         ]
 
