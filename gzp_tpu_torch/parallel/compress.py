@@ -63,13 +63,25 @@ DEFAULT_QUEUE_DEPTH = 3
 # rewrote stored (a stored Deflate block or member, an uncompressed Snappy
 # chunk), counted only while a profiler records, as the spans are
 stored_stats = {"blocks": 0, "stored": 0}
-_stored_lock = threading.Lock()  # writers on several threads share the counts
+_stats_lock = threading.Lock()  # writers on several threads share the counts
 
 
 def reset_stored_stats() -> None:
     """Zero ``stored_stats``."""
-    with _stored_lock:
+    with _stats_lock:
         stored_stats.update(blocks=0, stored=0)
+
+
+# rows ``ParCompress._dispatch`` sent with data where blocks carry a
+# dictionary, their bytes and their dictionaries' bytes, counted only while a
+# profiler records, as the spans are
+halo_stats = {"blocks": 0, "block_bytes": 0, "dict_bytes": 0}
+
+
+def reset_halo_stats() -> None:
+    """Zero ``halo_stats``."""
+    with _stats_lock:
+        halo_stats.update(blocks=0, block_bytes=0, dict_bytes=0)
 
 
 def make_halo(arr: np.ndarray, lengths: np.ndarray, carry: bytes, dict_size: int):
@@ -350,6 +362,12 @@ class ParCompress:
         # the halo spans the whole batch before a mesh splits it: the first
         # row of a device's share gets the last row of the share before
         halo, dict_lens = make_halo(arr, lengths, self._carry, self._dict_size)
+        if halo is not None and recording():
+            full = lengths > 0
+            with _stats_lock:
+                halo_stats["blocks"] += int(full.sum())
+                halo_stats["block_bytes"] += int(lengths.sum())
+                halo_stats["dict_bytes"] += int(dict_lens[full].sum())
         self._carry = update_carry(arr, lengths, self._carry, self._dict_size,
                                    count or len(lengths))
         args = [arr, lengths, finals] + ([halo, dict_lens] if halo is not None else [])
@@ -421,7 +439,7 @@ class ParCompress:
             for chk, ln in sums:
                 self._check.combine_sum(chk, ln)
         if recording():
-            with _stored_lock:
+            with _stats_lock:
                 stored_stats["blocks"] += len(sums)
                 stored_stats["stored"] += stored
         if pieces:

@@ -18,7 +18,9 @@ one batch share its number. Writing the spans out is the profiler's job
 (the duration less the part covered by child spans on the same thread);
 :func:`reset` clears them. Spans opened on pool threads reach the totals;
 whether they reach the trace is up to the profiler. Counters kept beside
-the spans (``parallel.compress.stored_stats``) count only while
+the spans (``parallel.compress.stored_stats``: blocks emitted and those
+rewritten stored; ``parallel.compress.halo_stats``: rows dispatched with a
+dictionary, their bytes and their dictionaries' bytes) count only while
 :func:`recording`, so that they cover the same span of work.
 """
 

@@ -9,7 +9,9 @@ counts of a capture and of a replay against an eager call's;
 ``graph_stats`` (one capture, then replays only); and whole streams
 written through the graph against the same writer run eagerly: a ragged
 final batch, an empty closing block, a flush mid-stream, a mesh of
-``[cuda:0, cuda:0]``, and two writers on two threads sharing one graph.
+``[cuda:0, cuda:0]``, and two writers on two threads sharing one graph;
+a 64 MiB Gzip level-6 stream at 64 rows (pigz's default) and its
+``halo_stats`` under the profiler, graphed against eager.
 
 Marked ``cuda``; without a CUDA device every test skips (decided in the
 fixture, never at import). Run on the card with ``python -m pytest -m cuda
@@ -27,6 +29,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from gzp_tpu_torch import Bgzf, Gzip, Mgzip, RawDeflate, Snap, ZBuilder, Zlib
 from gzp_tpu_torch.ops import graphs
+from gzp_tpu_torch.parallel import compress
 from gzp_tpu_torch.parallel.compress import make_halo
 from gzp_tpu_torch.runtime import cuda_lib
 
@@ -202,4 +205,30 @@ def test_two_writers_on_two_threads_share_one_graph(card):
     assert got == want
     # 3 streams of 7 batches a writer, every one a replay of the first run's graph
     assert graphs.graph_stats == {"captured": 0, "replayed": 42, "eager": 0}
+    graphs.reset_graph_stats()
+
+
+def test_gzip6_stream_of_64_mib_and_its_halo_stats_equal_the_eager_writers(card, monkeypatch):
+    rng = np.random.default_rng(9)
+    words = np.frombuffer(b"to be or not to be that is the question whether tis nobler ", np.uint8)
+    starts = rng.integers(0, len(words) - 8, (64 << 20) // 8)
+    blob = words[(starts[:, None] + np.arange(8)).reshape(-1)].tobytes()
+
+    def counted():
+        compress.reset_halo_stats()
+        graphs.reset_graph_stats()
+        with profile(activities=[ProfilerActivity.CPU]):
+            out = _stream(Gzip, 6, blob, card, threads=64)
+        return out, dict(compress.halo_stats), dict(graphs.graph_stats)
+
+    got, got_halo, got_graphs = counted()
+    assert got_graphs["eager"] == 0 and got_graphs["replayed"] > 0
+    monkeypatch.setattr(graphs, "run", _eager)
+    want, want_halo, _ = counted()
+    assert got == want
+    # 8 batches of 64 rows of 128 KiB; a fresh writer's first row has no
+    # dictionary, and finish()'s empty closing block no data
+    assert got_halo == want_halo == {"blocks": 512, "block_bytes": 64 << 20,
+                                     "dict_bytes": 511 * 32768}
+    compress.reset_halo_stats()
     graphs.reset_graph_stats()
